@@ -1,0 +1,29 @@
+"""Carry state across from the JAX package.
+
+``system_state_from_jax`` takes the dict that ``professad_tpu``'s
+``System.state_dict()`` returns (numpy arrays and plain Python values) and
+returns it with the arrays as tensors on a chosen device and dtype, ready
+for this package's ``System.load_state_dict``.  No JAX import is needed:
+the input is numpy.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["system_state_from_jax"]
+
+_ARRAY_KEYS = ("box_vecs", "frac_ion_coords", "den", "v_ext")
+
+
+def system_state_from_jax(state, device=None, dtype=torch.float64):
+    """Convert a JAX ``System.state_dict()`` to this package's tensors."""
+    missing = [k for k in _ARRAY_KEYS + ("N_elec", "shape", "ions")
+               if k not in state]
+    if missing:
+        raise KeyError(f"state dict lacks {missing}")
+    out = {k: torch.tensor(np.asarray(state[k]), dtype=dtype, device=device)
+           for k in _ARRAY_KEYS}
+    out["N_elec"] = state["N_elec"]
+    out["shape"] = tuple(int(s) for s in state["shape"])
+    out["ions"] = [tuple(ion) for ion in state["ions"]]
+    return out

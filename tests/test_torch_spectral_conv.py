@@ -1,0 +1,94 @@
+"""The port's spectral convolution (professad_tpu_torch/ops/spectral_conv.py)
+against the JAX package's Pallas kernel (interpret mode) and jnp.fft.
+
+On CPU tensors the port runs its plain torch.fft version; the CUDA kernel
+itself is compared with that plain version on the card (chip_smoke.py and
+tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from professad_tpu.ops.pallas_fft import spectral_conv as jax_spectral_conv
+from professad_tpu_torch.ops import spectral_conv as sc
+
+SHAPES = [(16, 16, 16), (8, 16, 12), (16, 8, 10), (18, 18, 18), (9, 15, 7)]
+
+
+def _case(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    m2 = shape[2] // 2 + 1
+    return (rng.standard_normal(shape),
+            rng.random((shape[0], shape[1], m2)))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_matches_jax_pallas_f32(shape):
+    """Forward and VJP, f32, against the Pallas kernel in interpret mode
+    and its custom_vjp; rel 5e-6 (both are f32 DFT compositions with O(n)
+    accumulations)."""
+    x, K = _case(shape)
+    ct = np.random.default_rng(1).standard_normal(shape)
+
+    @jax.jit  # one compile for the forward and the VJP
+    def fwd_and_vjp(v, c, Kj):
+        y, vjp = jax.vjp(lambda u: jax_spectral_conv(u, Kj, True), v)
+        return y, vjp(c)[0]
+
+    ref, g_ref = fwd_and_vjp(jnp.asarray(x, jnp.float32),
+                             jnp.asarray(ct, jnp.float32),
+                             jnp.asarray(K, jnp.float32))
+    xt = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+    out = sc.spectral_conv(xt, torch.tensor(K, dtype=torch.float32))
+    out.backward(torch.tensor(ct, dtype=torch.float32))
+    assert out.dtype == torch.float32
+    assert _rel(out.detach().numpy(), ref) < 5e-6
+    assert _rel(xt.grad.numpy(), g_ref) < 5e-6
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_matches_jnp_fft_f64(shape):
+    """f64 forward and VJP against irfftn(K * rfftn(x)) in jnp.fft, 1e-12."""
+    x, K = _case(shape, seed=2)
+    xj, Kj = jnp.asarray(x), jnp.asarray(K)
+    f = lambda v: jnp.fft.irfftn(Kj * jnp.fft.rfftn(v), shape)
+    ct = np.random.default_rng(7).standard_normal(shape)
+    ref = f(xj)
+    g_ref = jax.vjp(f, xj)[1](jnp.asarray(ct))[0]
+    xt = torch.tensor(x, requires_grad=True)
+    out = sc.spectral_conv(xt, torch.tensor(K))
+    out.backward(torch.tensor(ct))
+    assert out.dtype == torch.float64
+    assert _rel(out.detach().numpy(), ref) < 1e-12
+    assert _rel(xt.grad.numpy(), g_ref) < 1e-12
+
+
+def test_dc_split_exact_on_uniform_fields():
+    """A uniform f32 field convolves to the exactly uniform K[0,0,0] * c:
+    the DC split keeps the FFT's rounding out of the k=0 channel."""
+    shape = (24, 24, 24)
+    c = np.float32(0.0296)
+    K = torch.tensor(_case(shape)[1], dtype=torch.float32)
+    x = torch.full(shape, float(c), dtype=torch.float32)
+    y = sc.spectral_conv(x, K).numpy()
+    expect = np.float32(K[0, 0, 0].item() * c)
+    assert np.all(y == y.flat[0]), np.ptp(y)
+    assert abs(float(y.flat[0]) - float(expect)) <= np.spacing(expect)
+
+
+def test_cpu_tensors_never_launch():
+    before = sc.launches
+    x, K = _case((9, 15, 7))
+    sc.spectral_conv(torch.tensor(x), torch.tensor(K))
+    sc.spectral_conv(torch.tensor(x, dtype=torch.float32),
+                     torch.tensor(K, dtype=torch.float32))
+    assert sc.launches == before == 0
+

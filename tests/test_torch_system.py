@@ -1,0 +1,158 @@
+"""The port's System on the density-optimization path against the JAX
+package: ionic setup, state carried across, TPGD iterations, and the
+PROFESS-4 golden energy reached through the port's own main path.
+f64 on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from professad_tpu import system as jsys
+from professad_tpu.ops import solvers as jsolvers
+from professad_tpu.models import (IonIon as jIonIon,
+                                  IonElectron as jIonElectron,
+                                  Hartree as jHartree,
+                                  WangTeter as jWangTeter,
+                                  PerdewBurkeErnzerhof as jPBE)
+from professad_tpu_torch import System, system_state_from_jax
+from professad_tpu_torch.ops import solvers
+from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                        WangTeter, PerdewBurkeErnzerhof)
+from paths import pot
+
+SHAPE = (12, 12, 12)
+FRAC = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                 [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+J_TERMS = [jIonIon, jIonElectron, jHartree, jWangTeter, jPBE]
+T_TERMS = [IonIon, IonElectron, Hartree, WangTeter, PerdewBurkeErnzerhof]
+
+
+def _ions():
+    return [["Al", pot("al.gga.recpot"), FRAC]]
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The bench system (4-atom cubic fcc Al, WT+PBE) in both packages,
+    the JAX one carrying a seeded non-uniform density."""
+    js = jsys.System(jnp.asarray(4.05 * np.eye(3)), SHAPE,
+                     [["Al", pot("al.gga.recpot"), jnp.asarray(FRAC)]],
+                     J_TERMS, units="a", coord_type="fractional")
+    den = 1.0 + 0.2 * np.random.default_rng(11).random(SHAPE)
+    den *= js._N_elec / (den.mean() * js.volume("b3"))
+    js.set_density(jnp.asarray(den))
+    ts = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                coord_type="fractional")
+    return js, ts
+
+
+def test_vext_and_ion_ion_match_jax(pair):
+    js, ts = pair
+    v_ref = np.asarray(js._v_ext)
+    v = ts.ionic_potential().numpy()
+    assert np.max(np.abs(v - v_ref)) <= 1e-12 * np.max(np.abs(v_ref))
+    cart = ts._frac_ion_coords @ ts._box_vecs
+    E_ii = float(ts._ion_ion_interaction(ts._box_vecs, cart))
+    E_ii_ref = float(js._ion_ion_interaction(
+        js._box_vecs, js._frac_ion_coords @ js._box_vecs))
+    assert abs(E_ii - E_ii_ref) <= 1e-12 * abs(E_ii_ref)
+
+
+def test_state_from_jax_round_trip(pair):
+    js, ts = pair
+    state = system_state_from_jax(js.state_dict(), device="cpu")
+    assert state["den"].dtype == torch.float64
+    ts.load_state_dict(state)
+    assert abs(ts.energy() - js.energy()) <= 1e-10 * abs(js.energy())
+    again = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional")
+    again.load_state_dict(ts.state_dict())
+    assert again.energy() == ts.energy()
+
+
+def test_five_tpgd_iterations_match_jax(pair):
+    """Five preconditioned BB2 iterations from the uniform start: the JAX
+    package's tpgd_iteration against the port's tpgd_minimize loop (no
+    damping yet: it needs six stagnant iterations)."""
+    js, ts = pair
+    N = float(ts._N_elec)
+    box_np, vext_np = ts._box_vecs.numpy(), ts._v_ext.numpy()
+    chi0 = np.full(SHAPE, np.sqrt(N / ts.volume("b3")))
+
+    jbox, jvext = jnp.asarray(box_np), jnp.asarray(vext_np)
+    Mj = jax.jit(js._exact_precond_kernel)(jbox, N)
+    vg_j = jax.jit(lambda x: js._chi_value_and_grad_analytic(
+        x, jbox, jvext, N))
+    x0 = jnp.asarray(chi0)
+    f0, g0 = vg_j(x0)
+    st_j = jsolvers.TPGDState(x=x0, f=f0, g=g0, g_prev=g0,
+                              Mg_prev=jnp.zeros_like(g0),
+                              s_prev=jnp.zeros_like(g0),
+                              n_iter=jnp.zeros((), jnp.int32))
+    best = (float(st_j.f), st_j.x)
+    for _ in range(5):
+        st_j = jsolvers.tpgd_iteration(vg_j, st_j, 1.0,
+                                       apply_H0=js._apply_spectral(Mj))
+        best = min(best, (float(st_j.f), st_j.x), key=lambda b: b[0])
+
+    box, vext = torch.tensor(box_np), torch.tensor(vext_np)
+    Mt = ts._exact_precond_kernel(box, N)
+    st, n_it, conv = solvers.tpgd_minimize(
+        lambda x: ts._chi_value_and_grad_analytic(x, box, vext, N),
+        torch.tensor(chi0), lr=1.0, ntol=1e-7, max_iter=5,
+        apply_H0=ts._apply_spectral(Mt))
+    assert n_it == 5 and not conv
+    # the port returns the best iterate, as the JAX tpgd_minimize does
+    assert abs(float(st.f) - best[0]) <= 1e-10 * abs(best[0])
+    x_ref = np.asarray(best[1])
+    assert np.max(np.abs(st.x.numpy() - x_ref)) <= 1e-10 * np.max(
+        np.abs(x_ref))
+
+
+def test_golden_energy_fcc_al_through_tpgd_path():
+    """Primitive fcc Al, WT+PBE, 18^3 (the PROFESS-4 golden case of
+    tests/test_match_profess4.py) through the port's main path: exact
+    preconditioner, fused analytic gradient, TPGD."""
+    cell = 4.050 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5],
+                             [0.5, 0.0, 0.5]])
+    s = System(cell, (18, 18, 18), [["Al", pot("al.gga.recpot"),
+                                     np.zeros((1, 3))]], T_TERMS,
+               units="a", coord_type="fractional")
+    n_it, conv = s.optimize_density(ntol=1e-7, n_method="TPGD",
+                                    analytic=True, precondition=True,
+                                    n_step_size=1.0, skip_iters=2,
+                                    jit_loop=True)
+    assert conv, n_it
+    assert abs(s.energy("eV") - (-57.183329401794985)) < 1e-4
+    assert s.density().dtype == torch.float64
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(n_method="LBFGS", analytic=True, precondition=True),
+    dict(n_method="TPGD", analytic=False, precondition=True),
+    dict(n_method="TPGD", analytic=True, precondition=None),
+    dict(n_method="TPGD", analytic=True, precondition=True,
+         conv_target="euler"),
+], ids=["lbfgs", "autograd", "unpreconditioned", "euler"])
+def test_unported_options_raise(pair, kwargs):
+    _, ts = pair
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.optimize_density(**kwargs)
+
+
+def test_import_loads_no_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, professad_tpu_torch; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'professad_tpu' "
+            "or m.startswith('professad_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
