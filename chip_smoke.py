@@ -1,25 +1,42 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the spectral
-convolution kernel from the checkout, holds it against its plain torch.fft
-version, and drives the density-optimization main path end to end.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
+the checkout, holds each against its plain PyTorch version, and drives the
+port's paths end to end.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/spectral_conv.cu with nvcc (sm_90a);
-  3. kernel vs plain version, f32 and f64, forward and backward, at 18^3,
-     (9, 15, 7) and 128^3; tolerances f32 rel 5e-6 (<= 32^3) / 2e-5
-     (128^3: three O(n) FMA sums per direction), f64 rel 1e-12; per-call
-     times of both at 128^3;
-  4. the main path: 4-atom cubic fcc Al, 128^3, IonIon + IonElectron +
-     Hartree + WangTeter + PBE, f32, System.optimize_density(TPGD,
-     analytic, preconditioned) from the uniform start to dE < 1e-7 eV three
-     times in a row; one warm run, then a timed run with the kernel's
-     launch count reset just before it (launches >= 3 x iterations);
-  5. the same system in f64: |E32 - E64| < 2e-5 eV/atom, and the per-term
+  2. build csrc/spectral_conv.cu and csrc/stockham.cu with nvcc (sm_90a),
+     one nvcc per source, both started together;
+  3. spectral_conv vs its plain version, f32 and f64, forward and
+     backward, at 18^3, (9, 15, 7) and 128^3; tolerances f32 rel 5e-6
+     (<= 32^3) / 2e-5 (128^3: three O(n) FMA sums per direction), f64 rel
+     1e-12; per-call times of both at 128^3;
+  4. the five Stockham kernels (ops/vpufft.py) vs their torch.fft versions
+     at the JAX test shapes, (128, 8320) and 256^3, rel 1e-6 (max abs error
+     over max |plain|); per-call times at 256^3 beside the torch.fft call
+     and the HBM bound;
+  5. the butterfly path, launch counts reset just before it: the 256^3
+     go/no-go of the JAX bench (chained feedback pairs
+     y / (1 + mean(y^2)), 20 each) timing the cuFFT pair
+     irfftn(K rfftn(x)), conv3_bfly and spectral_conv, and the unit entry
+     fft_sublane -> ifft_sublane at (128, 8320); every Stockham kernel
+     must launch;
+  6. the main path, spectral_conv's count reset just before it: 4-atom
+     cubic fcc Al, 128^3, IonIon + IonElectron + Hartree + WangTeter + PBE,
+     f32, optimize_density(TPGD, analytic, preconditioned, jit_loop) from
+     the uniform start to dE < 1e-7 eV three times in a row; one warm run,
+     then a timed run (launches >= 3 x iterations); forces (|F| < 1e-5
+     Ha/bohr by symmetry) and stress (isotropic within 1e-4 of its trace)
+     at that ground state;
+  7. the same system in f64: |E32 - E64| < 2e-5 eV/atom, and the per-term
      f32 energy bias of the fused sweep at the f64 ground state;
-  6. the PROFESS-4 golden energy (primitive fcc Al, 18^3, f64), atol 1e-4.
+  8. the PROFESS-4 golden energy (primitive fcc Al, 18^3, f64), atol 1e-4,
+     through the TPGD path and through the default optimize_density()
+     (host-loop L-BFGS, autograd gradient);
+  9. forces against central finite differences of the re-optimized
+     energy (4-atom fcc Al, 16^3, f64, one ion displaced), atol 1e-4 eV/A.
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -31,12 +48,15 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_EV = -57.183329401794985
 NTOL = 1e-7
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_FLOPS = 67e12            # FP32 outside the tensor cores
 
 
 def log(msg):
@@ -66,6 +86,14 @@ def cuda_time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, flops):
+    """Least time the card could take (ms): the larger of the bytes over
+    the HBM rate and the FP32 operations over the FP32 peak."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def phase_kernel(device):
@@ -109,6 +137,192 @@ def phase_kernel(device):
                     f"{ms:.4f} ms, plain torch.fft {pms:.4f} ms")
                 out[dt] = (abs_err, ef, ms, pms)
     return out
+
+
+STOCKHAM = {  # name -> TPU kernel it replaces
+    "fft_sublane": "professad_tpu/ops/vpufft.py:145",
+    "fft_sublane_real": "professad_tpu/ops/vpufft.py:182",
+    "ifft_sublane_real_out": "professad_tpu/ops/vpufft.py:222",
+    "sublane_conv": "professad_tpu/ops/vpufft.py:274",
+    "fft_mid": "professad_tpu/ops/vpufft.py:346",
+}
+
+
+def _stockham_cases(vf, torch, shape, device, rng):
+    """(name, kernel fn, plain fn, args, library call or None, bytes,
+    flops) for every Stockham entry at one (n, B) shape, and for fft_mid
+    at (n, B / n, n) where B / n is a power of two."""
+    f32 = dict(dtype=torch.float32, device=device)
+    n, B = shape
+    a, b, k = (torch.tensor(rng.standard_normal(shape), **f32)
+               for _ in range(3))
+    z = torch.complex(a, b)
+    logn = int(np.log2(n))
+    N = n * B
+    plane = 4 * N
+    cases = [
+        ("fft_sublane", vf.fft_sublane, vf.fft_sublane_reference, (a, b),
+         lambda: torch.fft.fft(z, dim=0), 4 * plane, 5 * N * logn),
+        ("ifft_sublane", vf.ifft_sublane, vf.ifft_sublane_reference, (a, b),
+         lambda: torch.fft.ifft(z, dim=0), 4 * plane, 5 * N * logn),
+        ("fft_sublane_real", vf.fft_sublane_real,
+         vf.fft_sublane_real_reference, (a,),
+         lambda: torch.fft.fft(a, dim=0), 3 * plane, 2.5 * N * logn),
+        ("ifft_sublane_real_out", vf.ifft_sublane_real_out,
+         vf.ifft_sublane_real_out_reference, (a, b),
+         lambda: torch.fft.ifft(z, dim=0), 3 * plane, 2.5 * N * logn),
+        ("sublane_conv", vf.sublane_conv, vf.sublane_conv_reference,
+         (a, b, k), None, 5 * plane, 10 * N * logn + 2 * N),
+    ]
+    n1 = B // n
+    if B % n == 0 and n1 & (n1 - 1) == 0:
+        a3, b3 = a.reshape(n, n1, n), b.reshape(n, n1, n)
+        z3 = torch.complex(a3, b3)
+        l1 = int(np.log2(n1))
+        cases += [
+            ("fft_mid", vf.fft_mid, vf.fft_mid_reference, (a3, b3),
+             lambda: torch.fft.fft(z3, dim=1), 4 * plane, 5 * N * l1),
+            ("ifft_mid", vf.ifft_mid, vf.ifft_mid_reference, (a3, b3),
+             lambda: torch.fft.ifft(z3, dim=1), 4 * plane, 5 * N * l1),
+        ]
+    return cases
+
+
+def phase_stockham(device, shapes=((32, 256), (16, 256), (128, 8320),
+                                   (256, 256 * 256))):
+    """The Stockham kernels vs their plain versions; returns the numbers
+    per kernel at the last shape (256^3), where they are timed."""
+    import torch
+    from professad_tpu_torch.ops import vpufft as vf
+
+    tol = 1e-6
+    rng = np.random.default_rng(1)
+    out = {}
+    for shape in shapes:
+        timed = shape == shapes[-1]
+        for (name, fn, ref, args, lib, nbytes,
+             flops) in _stockham_cases(vf, torch, shape, device, rng):
+            got, want = fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            rel = abs_err / max(float(w.abs().max()) for w in want)
+            msg = (f"[stockham] {name} {tuple(args[0].shape)}: rel "
+                   f"{rel:.3e} (tol {tol:g}) max abs {abs_err:.3e}")
+            if not rel < tol:
+                raise AssertionError(msg)
+            if timed:
+                ms = cuda_time_ms(lambda: fn(*args), 20)
+                pms = cuda_time_ms(lambda: ref(*args), 20)
+                lms = None if lib is None else cuda_time_ms(lib, 20)
+                bms, by = bound(nbytes, flops)
+                out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms,
+                                 library_ms=lms, bound_ms=bms, bound_by=by)
+                msg += (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                        f"torch.fft call "
+                        f"{'n/a' if lms is None else f'{lms:.4f} ms'}, "
+                        f"bound {bms:.4f} ms ({by}, "
+                        f"{100 * bms / ms:.1f}% of it)")
+            log(msg)
+    return out
+
+
+def _pair_kernels(n):
+    """The go/no-go's input and kernels: K = 1 / (1 + 0.05 k^2) on the
+    integer frequencies (Hermitian-even), full, half and (z, y, x)."""
+    rng = np.random.default_rng(0)
+    x0 = (1.0 + 0.01 * rng.standard_normal((n, n, n))).astype(np.float32)
+    kx = np.fft.fftfreq(n) * n
+    k2 = (kx[:, None, None] ** 2 + kx[None, :, None] ** 2
+          + kx[None, None, :] ** 2)
+    K_full = (1.0 / (1.0 + 0.05 * k2)).astype(np.float32)
+    return x0, K_full
+
+
+def phase_bfly(device, n=256, iters=20):
+    """The butterfly path: the JAX bench's 256^3 go/no-go
+    (bench.py:586-637) over three chained conv-pair programs, and the unit
+    entry fft_sublane -> ifft_sublane at the production half-spectrum
+    x-axis shape (128, 8320).  Returns the launch counts of this phase."""
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    from professad_tpu_torch.ops import vpufft as vf
+
+    f32 = dict(dtype=torch.float32, device=device)
+    x0_np, K_np = _pair_kernels(n)
+    x0 = torch.tensor(x0_np, **f32)
+    K_half = torch.tensor(np.ascontiguousarray(K_np[:, :, : n // 2 + 1]),
+                          **f32)
+    K_t = torch.tensor(np.ascontiguousarray(np.transpose(K_np, (2, 1, 0))),
+                       **f32)
+    shape = (n, n, n)
+
+    def feedback(y):
+        return y / (1.0 + torch.mean(y * y))
+
+    programs = {
+        "cuFFT pair": lambda x: feedback(torch.fft.irfftn(
+            K_half * torch.fft.rfftn(x), s=shape)),
+        "conv3_bfly": lambda x: feedback(vf.conv3_bfly(x, K_t)),
+        "spectral_conv": lambda x: feedback(sc.spectral_conv(x, K_half)),
+    }
+
+    def chain_ms(step):
+        x = x0
+        for _ in range(3):
+            x = step(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            x = step(x)
+        stop.record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("non-finite chained output")
+        return start.elapsed_time(stop) / iters
+
+    for key in vf.launches:
+        vf.launches[key] = 0
+    with torch.no_grad():
+        y = {k: step(x0) for k, step in programs.items()}
+        torch.cuda.synchronize()
+        ref = y["cuFFT pair"]
+        rel = {k: float((v - ref).abs().max() / ref.abs().max())
+               for k, v in y.items() if k != "cuFFT pair"}
+        ms = {k: chain_ms(step) for k, step in programs.items()}
+        # the unit entry: c2c forward and inverse along axis 0
+        rng = np.random.default_rng(2)
+        ar, ai = (torch.tensor(rng.standard_normal((128, 8320)), **f32)
+                  for _ in range(2))
+        br, bi = vf.ifft_sublane(*vf.fft_sublane(ar, ai))
+        torch.cuda.synchronize()
+        rt = float(torch.maximum((br - ar).abs().max(),
+                                 (bi - ai).abs().max()))
+    counts = dict(vf.launches)
+    base = ms["cuFFT pair"]
+    log(f"[bfly] {n}^3 go/no-go, ms per chained pair: cuFFT "
+        f"{base:.4f}, conv3_bfly {ms['conv3_bfly']:.4f} "
+        f"({ms['conv3_bfly'] / base:.2f}x), spectral_conv "
+        f"{ms['spectral_conv']:.4f} ({ms['spectral_conv'] / base:.2f}x); "
+        f"rel err vs cuFFT: conv3_bfly {rel['conv3_bfly']:.3e}, "
+        f"spectral_conv {rel['spectral_conv']:.3e} (tol 2e-5)")
+    log(f"[bfly] unit entry fft_sublane -> ifft_sublane (128, 8320): max "
+        f"round-trip error {rt:.3e} (tol 1e-5); launches {counts}")
+    if not (rel["conv3_bfly"] < 2e-5 and rel["spectral_conv"] < 2e-5
+            and rt < 1e-5):
+        raise AssertionError("butterfly path disagrees with cuFFT")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"Stockham kernels never launched: {missing}")
+    bytes_pair = 3 * 4 * n ** 3
+    bms, by = bound(bytes_pair, 3 * 5 * n ** 3 * np.log2(n) * 2)
+    log(f"[bfly] whole conv3_bfly bound {bms:.4f} ms ({by}); "
+        f"{100 * bms / ms['conv3_bfly']:.1f}% of it")
+    return counts
 
 
 def build_bench_system(shape, dtype, device):
@@ -164,6 +378,63 @@ def phase_slice(device, n, sync):
     return s, dict(E=E, n_it=n_it, t=t, launches=launches)
 
 
+def phase_derivatives(s):
+    """Forces and stress at the 128^3 f32 ground state of the main path
+    (evaluated in f64 on the stored state): every ion of the cubic cell
+    sits at a centre of symmetry, so the forces vanish, and the stress of
+    a cubic cell on a cubic grid is isotropic."""
+    import torch
+    E0 = s.energy()
+    t0 = time.perf_counter()
+    F = s.forces()
+    sigma = s.stress()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    fmax = float(F.abs().max())
+    p = float(torch.trace(sigma)) / 3.0
+    aniso = float((sigma - p * torch.eye(3, dtype=sigma.dtype,
+                                         device=sigma.device)).abs().max())
+    log(f"[derivatives] {s.density().shape[0]}^3 ground state: max |F| "
+        f"{fmax:.3e} Ha/bohr "
+        f"(bound 1e-5); stress diag {[f'{v:.6e}' for v in sigma.diag()]}"
+        f" Ha/bohr^3, pressure {-p * s.GPa_per_atomic:.6f} GPa, max "
+        f"|sigma - p I| / |p| {aniso / abs(p):.3e} (bound 1e-4); {t:.3f} s")
+    if not (fmax < 1e-5 and aniso < 1e-4 * abs(p)):
+        raise AssertionError("forces or stress break the cell's symmetry")
+    if s.energy() != E0:
+        raise AssertionError("forces/stress changed the stored energy")
+
+
+def phase_fd_forces(device, eps=1e-4):
+    """Forces against central finite differences of the energy,
+    re-optimized through the default optimize_density() at each
+    displacement: 4-atom fcc Al, 16^3, f64, ion 1 displaced."""
+    import torch
+    s = build_bench_system((16, 16, 16), torch.float64, device)
+    R = s.cartesian_ionic_coordinates("a").cpu().numpy()
+    R[1] += np.array([0.03, -0.02, 0.05])
+    s.place_ions(R, units="a")
+    t0 = time.perf_counter()
+    n_it, conv = s.optimize_density(ntol=1e-8)
+    F = s.forces("eV/a").cpu().numpy()[1]
+    F_fd = np.zeros(3)
+    for axis in range(3):
+        E = []
+        for sign in (1.0, -1.0):
+            Rd = R.copy()
+            Rd[1, axis] += sign * eps
+            s.place_ions(Rd, units="a")
+            s.optimize_density(ntol=1e-8)
+            E.append(s.energy("eV"))
+        F_fd[axis] = -(E[0] - E[1]) / (2 * eps)
+    err = float(np.abs(F - F_fd).max())
+    log(f"[fd] 16^3 f64, default optimize_density ({n_it} outer steps, "
+        f"converged {conv}): F {F} eV/A, central differences {F_fd}, max "
+        f"diff {err:.3e} (atol 1e-4); {time.perf_counter() - t0:.2f} s")
+    if not conv or err >= 1e-4:
+        raise AssertionError("forces disagree with finite differences")
+
+
 def term_biases(s64):
     """Per-term f32 energy error of the fused sweep at the f64 ground
     state, in micro-eV per atom."""
@@ -215,12 +486,20 @@ def phase_golden(device):
                [IonIon, IonElectron, Hartree, WangTeter,
                 PerdewBurkeErnzerhof], units="a", coord_type="fractional",
                device=device, dtype=torch.float64)
-    n_it, conv = optimize(s)
-    E = s.energy("eV")
-    log(f"[golden] primitive fcc Al 18^3 f64: E {E:.9f} eV vs PROFESS-4 "
-        f"{GOLDEN_EV} (diff {E - GOLDEN_EV:+.3e}, atol 1e-4), {n_it} iters")
-    if not conv or abs(E - GOLDEN_EV) >= 1e-4:
-        raise AssertionError("golden energy mismatch")
+    for path, run in (("TPGD path", optimize),
+                      ("default optimize_density()",
+                       lambda s: s.optimize_density(ntol=NTOL))):
+        s.initialize_density()
+        t0 = time.perf_counter()
+        n_it, conv = run(s)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        E = s.energy("eV")
+        log(f"[golden] primitive fcc Al 18^3 f64, {path}: E {E:.9f} eV vs "
+            f"PROFESS-4 {GOLDEN_EV} (diff {E - GOLDEN_EV:+.3e}, atol 1e-4), "
+            f"{n_it} steps, {t:.3f} s")
+        if not conv or abs(E - GOLDEN_EV) >= 1e-4:
+            raise AssertionError(f"golden energy mismatch ({path})")
 
 
 def main():
@@ -230,6 +509,7 @@ def main():
               file=sys.stderr)
         return 1
     from professad_tpu_torch.ops import spectral_conv as sc
+    from professad_tpu_torch.ops import vpufft as vf
 
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA "
@@ -237,22 +517,45 @@ def main():
     device = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
     t0 = time.perf_counter()
-    sc.build_library()
-    log(f"[build] spectral_conv.cu built and loaded in "
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(sc.build_library), pool.submit(vf.build_library)]
+        for b in builds:
+            b.result()
+    log(f"[build] spectral_conv.cu and stockham.cu built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
     kern = phase_kernel(device)
-    _, res = phase_slice(device, 128, sync)
+    stock = phase_stockham(device)
+    bfly_launches = phase_bfly(device)
+    s32, res = phase_slice(device, 128, sync)
+    phase_derivatives(s32)
+    del s32
     phase_f64(device, 128, res["E"], sync)
     phase_golden(device)
+    phase_fd_forces(device)
 
     abs_err, _, ms, pms = kern[torch.float32]
-    print(json.dumps({"kernels": [{
+    n = 128
+    bms, by = bound(4 * (2 * n ** 3 + n * n * (n // 2 + 1)),
+                    2 * 2.5 * n ** 3 * np.log2(n ** 3))
+    kernels = [{
         "name": "spectral_conv", "route": "cuda",
         "source": "professad_tpu_torch/csrc/spectral_conv.cu",
         "replaces": "professad_tpu/ops/pallas_fft.py:229",
         "launches": res["launches"], "max_abs_err": abs_err,
-        "ms": ms, "plain_ms": pms}]}))
+        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "lib_ms": None}]
+    for name, replaces in STOCKHAM.items():
+        st = stock[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "professad_tpu_torch/csrc/stockham.cu",
+            "replaces": replaces, "launches": bfly_launches[name],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+            "lib_ms": st["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,17 +10,23 @@ the input is numpy.
 import numpy as np
 import torch
 
+from .utils.device import resolve_device
+
 __all__ = ["system_state_from_jax"]
 
 _ARRAY_KEYS = ("box_vecs", "frac_ion_coords", "den", "v_ext")
 
 
 def system_state_from_jax(state, device=None, dtype=torch.float64):
-    """Convert a JAX ``System.state_dict()`` to this package's tensors."""
+    """Convert a JAX ``System.state_dict()`` to this package's tensors.
+
+    ``device=None`` means ``cuda:0`` and raises without a CUDA device;
+    pass ``device="cpu"`` for the CPU."""
     missing = [k for k in _ARRAY_KEYS + ("N_elec", "shape", "ions")
                if k not in state]
     if missing:
         raise KeyError(f"state dict lacks {missing}")
+    device = resolve_device(device)
     out = {k: torch.tensor(np.asarray(state[k]), dtype=dtype, device=device)
            for k in _ARRAY_KEYS}
     out["N_elec"] = state["N_elec"]

@@ -1,29 +1,151 @@
-"""Preconditioned two-point gradient descent (TPGD) for density optimization.
+"""Density-optimization solvers: L-BFGS and two-point gradient descent.
 
-PyTorch port of ``professad_tpu/ops/solvers.py::tpgd_minimize`` /
-``tpgd_iteration`` / ``TPGDState``: BB2 steps ``x <- x - H M g`` in the
-M-inner product, stagnation-triggered damping and best-iterate tracking,
-with the same stopping rule (``|dE| * f_scale < ntol`` for ``conv_count``
-consecutive iterations after ``skip_iters``).
+PyTorch port of ``professad_tpu/ops/solvers.py``:
 
-Host loop decision: the JAX package runs the whole optimization as one
-``lax.while_loop`` program.  Here the loop is Python, and each iteration
-reads ONE device scalar to the host — the new energy, ``f.item()`` — which
-is all the stopping rule, the stagnation damping and the best-iterate
-choice need; they then run in host float64 arithmetic, exactly as the
-JAX package's f64 scalar logic.  Everything else in the iteration (the BB
-step size, the update, the energy and gradient) stays on the device with
-no further synchronisation.  Capturing the iteration in a CUDA graph is
-later work.
+* ``LBFGSState`` / ``lbfgs_init`` / ``lbfgs_iterations`` /
+  ``lbfgs_minimize``: L-BFGS (history 8) with a fixed step ``lr`` along the
+  two-loop direction, the first step scaled to ``min(1, 1/|g|_1) lr``, the
+  curvature filter ``y.s > 1e-10 |s|^2`` on the memory update and an
+  optional SPD preconditioner ``M`` as the initial inverse Hessian.  The
+  ring buffers and the curvature filter stay on the device (``torch.where``
+  on 0-d tensors), so a block of iterations never synchronises.
+* ``TPGDState`` / ``tpgd_iteration`` / ``tpgd_minimize``: BB2 steps
+  ``x <- x - H M g`` in the M-inner product, stagnation-triggered damping
+  and best-iterate tracking.
+* ``tpgd_init`` / ``tpgd_step``: the unpreconditioned BB1 step of the host
+  loop.
+
+Host loop decision: the JAX package runs a whole optimization as one
+``lax.while_loop`` program.  Here the loops are Python, and they read ONE
+device scalar to the host per check of the stopping rule — per iteration
+for TPGD (the new energy, ``f.item()``, which is all the stopping rule, the
+stagnation damping and the best-iterate choice need), per block of
+``block`` iterations for L-BFGS (the convergence measure).  The host logic
+then runs in float64, exactly as the JAX package's f64 scalar logic.
+Everything else stays on the device with no further synchronisation.
+Capturing the iteration in a CUDA graph is later work.
 """
 
 from typing import NamedTuple
 
 import torch
 
-__all__ = ["TPGDState", "tpgd_iteration", "tpgd_minimize"]
+__all__ = ["LBFGSState", "lbfgs_init", "lbfgs_iterations", "lbfgs_minimize",
+           "TPGDState", "tpgd_init", "tpgd_step", "tpgd_iteration",
+           "tpgd_minimize"]
 
 _STAG_K = 6  # iterations without a new best energy before the step halves
+
+
+class LBFGSState(NamedTuple):
+    x: torch.Tensor         # parameter array (caller's shape, preserved)
+    f: torch.Tensor         # 0-d objective
+    g: torch.Tensor         # gradient, shaped like x
+    g_prev: torch.Tensor    # gradient before the last move
+    S: torch.Tensor         # (history, *x.shape) step ring buffer
+    Y: torch.Tensor         # (history, *x.shape) gradient-difference buffer
+    rho: torch.Tensor       # (history,) 1/(y.s); 0 marks an empty slot
+    H_diag: torch.Tensor    # 0-d initial inverse-Hessian scale
+    t_prev: torch.Tensor    # last step size taken
+    d_prev: torch.Tensor    # last direction taken
+    n_iter: int             # L-BFGS iterations so far
+
+
+def lbfgs_init(value_and_grad, x0, history=8):
+    f0, g0 = value_and_grad(x0)
+    g0 = g0.reshape(x0.shape)
+    z = dict(dtype=x0.dtype, device=x0.device)
+    return LBFGSState(
+        x=x0, f=f0, g=g0, g_prev=g0,
+        S=torch.zeros((history,) + tuple(x0.shape), **z),
+        Y=torch.zeros((history,) + tuple(x0.shape), **z),
+        rho=torch.zeros((history,), **z), H_diag=torch.ones((), **z),
+        t_prev=torch.zeros((), **z), d_prev=torch.zeros_like(x0), n_iter=0)
+
+
+def _push(buf, v):
+    """Drop the oldest entry, append ``v`` (buffers stay oldest-first)."""
+    return torch.cat([buf[1:], v.unsqueeze(0)])
+
+
+def _two_loop(g, S, Y, rho, H_diag, M=None):
+    """Two-loop recursion d = -H g over the masked ring buffers, oldest
+    first; ``M`` applies a preconditioner as the initial inverse Hessian
+    (r = H_diag M q).  Empty slots have rho = 0 and drop out."""
+    history = S.shape[0]
+    q = -g
+    al = [None] * history
+    for idx in range(history - 1, -1, -1):
+        al[idx] = rho[idx] * torch.sum(S[idx] * q)
+        q = q - al[idx] * Y[idx]
+    r = H_diag * (q if M is None else M(q))
+    for i in range(history):
+        be = rho[i] * torch.sum(Y[i] * r)
+        r = r + (al[i] - be) * S[i]
+    return r
+
+
+def lbfgs_iterations(value_and_grad, state, num_iters, lr, apply_H0=None):
+    """Run ``num_iters`` L-BFGS iterations (one outer step of the host
+    loop).  No host synchronisation: the curvature filter is a
+    ``torch.where`` selection on 0-d tensors, and whether a step is the
+    first is known on the host from the iteration count."""
+    st = state
+    for _ in range(num_iters):
+        first = st.n_iter == 0
+        y = st.g - st.g_prev
+        s = st.t_prev * st.d_prev
+        if first:
+            S_new, Y_new, rho_new, H_new = st.S, st.Y, st.rho, st.H_diag
+            d = -(st.g if apply_H0 is None else apply_H0(st.g))
+            t = torch.clamp(1.0 / torch.sum(torch.abs(st.g)), max=1.0) * lr
+        else:
+            ys = torch.sum(y * s)
+            accept = ys > 1e-10 * torch.sum(s * s)
+            S_new = torch.where(accept, _push(st.S, s), st.S)
+            Y_new = torch.where(accept, _push(st.Y, y), st.Y)
+            inv = torch.where(ys != 0, 1.0 / torch.where(ys != 0, ys, 1.0),
+                              0.0)
+            rho_new = torch.where(accept, _push(st.rho, inv), st.rho)
+            yMy = torch.sum(y * (y if apply_H0 is None else apply_H0(y)))
+            H_new = torch.where(accept, ys / yMy, st.H_diag)
+            d = _two_loop(st.g, S_new, Y_new, rho_new, H_new, apply_H0)
+            t = torch.full((), lr, dtype=st.x.dtype, device=st.x.device)
+        x_new = st.x + t * d
+        f_new, g_new = value_and_grad(x_new)
+        st = LBFGSState(x=x_new, f=f_new, g=g_new.reshape(st.x.shape),
+                        g_prev=st.g, S=S_new, Y=Y_new, rho=rho_new,
+                        H_diag=H_new, t_prev=t, d_prev=d,
+                        n_iter=st.n_iter + 1)
+    return st
+
+
+def lbfgs_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
+                   max_iter=1000, history=8, f_scale=1.0, skip_iters=5,
+                   apply_H0=None, block=6, stop_fn=None):
+    """L-BFGS in blocks of ``block`` iterations to convergence.
+
+    The convergence measure is evaluated once per outer step (one block)
+    and read to the host; it must satisfy ``stop_var < ntol`` for
+    ``conv_count`` consecutive outer steps, checked only after
+    ``skip_iters`` outer steps.  ``max_iter`` counts outer steps.
+    ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the default measure
+    ``|dE| * f_scale``.  Returns (state, n_outer_steps, converged)."""
+    st = lbfgs_init(value_and_grad, x0, history)
+    f_prev = st.f
+    cnt = it = 0
+    while cnt < conv_count and it < max_iter:
+        st = lbfgs_iterations(value_and_grad, st, block, lr,
+                              apply_H0=apply_H0)
+        if stop_fn is None:
+            stop_var = torch.abs(st.f - f_prev) * f_scale
+        else:
+            stop_var = stop_fn(st, f_prev)
+        hit = it + 1 > skip_iters and float(stop_var) < ntol
+        cnt = cnt + 1 if hit else 0
+        f_prev = st.f
+        it += 1
+    return st, it, cnt >= conv_count
 
 
 class TPGDState(NamedTuple):
@@ -34,6 +156,31 @@ class TPGDState(NamedTuple):
     Mg_prev: torch.Tensor   # preconditioned previous gradient
     s_prev: torch.Tensor    # the last move, fl(x_new) - fl(x_old)
     n_iter: int
+
+
+def tpgd_init(value_and_grad, x0):
+    f0, g0 = value_and_grad(x0)
+    zeros = torch.zeros_like(x0)
+    return TPGDState(x=x0, f=f0, g=g0.reshape(x0.shape), g_prev=zeros,
+                     Mg_prev=zeros, s_prev=zeros, n_iter=0)
+
+
+def tpgd_step(value_and_grad, lr, state):
+    """One Barzilai-Borwein (BB1) two-point gradient step, the host loop's
+    TPGD: alpha = s.s / s.y, ``lr`` on the first step or where the
+    curvature is zero or negative."""
+    dx = state.s_prev
+    num = torch.sum(dx * dx)
+    den = torch.sum(dx * (state.g - state.g_prev))
+    ratio = num / torch.where(den == 0, 1.0, den)
+    alpha = torch.where((den == 0.0) | (ratio <= 0.0), lr, ratio)
+    if state.n_iter == 0:
+        alpha = torch.full_like(alpha, lr)
+    x_new = state.x - alpha * state.g
+    f_new, g_new = value_and_grad(x_new)
+    return TPGDState(x=x_new, f=f_new, g=g_new.reshape(state.x.shape),
+                     g_prev=state.g, Mg_prev=state.Mg_prev,
+                     s_prev=x_new - state.x, n_iter=state.n_iter + 1)
 
 
 def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0):
@@ -67,9 +214,12 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0):
 
 
 def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
-                  max_iter=1000, f_scale=1.0, skip_iters=2, apply_H0=None):
+                  max_iter=1000, f_scale=1.0, skip_iters=2, apply_H0=None,
+                  stop_fn=None):
     """Preconditioned TPGD to convergence.  Returns (state, n_iters,
-    converged).
+    converged).  ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the
+    default convergence measure ``|dE| * f_scale`` (one more scalar read
+    per iteration).
 
     Stagnation damping: after ``_STAG_K`` consecutive iterations without a
     new best energy by more than the dtype's resolution (8 eps |f_best|),
@@ -89,6 +239,7 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     cnt = it = stag = 0
     damp = 1.0
     while cnt < conv_count and it < max_iter:
+        f_prev_t = st.f
         st = tpgd_iteration(value_and_grad, st, lr, apply_H0=apply_H0,
                             scale=damp)
         f_new = st.f.item()
@@ -100,7 +251,9 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
         if stag >= _STAG_K:
             damp *= 0.5
             stag = 0
-        hit = it + 1 > skip_iters and abs(f_new - f_prev) * f_scale < ntol
+        stop_var = (abs(f_new - f_prev) * f_scale if stop_fn is None
+                    else float(stop_fn(st, f_prev_t)))
+        hit = it + 1 > skip_iters and stop_var < ntol
         cnt = cnt + 1 if hit else 0
         it += 1
         f_prev = f_new

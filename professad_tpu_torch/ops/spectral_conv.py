@@ -6,9 +6,7 @@ spectral_conv`` (its three ``pl.pallas_call`` passes from
 ``_make_kernels``).  The kernel source is ``csrc/spectral_conv.cu``; it is a
 direct-DFT design in FP32/FP64 FMA arithmetic (no TF32, no tensor cores),
 bound by FMA issue and L1/L2 re-reads rather than by device memory — the
-source note says how.  It is built with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, under
-``build/kernels/`` of the checkout, and loaded with ``ctypes``.
+source note says how.  It is built by ``ops/cuda_build.py`` at first use.
 
 Dispatch: :func:`spectral_conv` runs :func:`spectral_conv_reference` (the
 ``torch.fft`` composition) for CPU tensors only.  For CUDA tensors it
@@ -25,24 +23,17 @@ a silent dK = 0.
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from .cuda_build import build
 from .grid import wmean
 
 __all__ = ["spectral_conv", "spectral_conv_reference", "build_library",
            "launches"]
 
 launches = 0
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spectral_conv.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 
 def spectral_conv_reference(x, K):
@@ -55,37 +46,11 @@ def spectral_conv_reference(x, K):
     return torch.fft.irfftn(K * torch.fft.rfftn(x), s=shape)
 
 
-def _find_nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is not None:
-            cand = Path(CUDA_HOME) / "bin" / "nvcc"
-            nvcc = str(cand) if cand.exists() else None
-    if nvcc is None:
-        raise RuntimeError("spectral_conv: nvcc not found (needs the CUDA "
-                           "toolkit to build csrc/spectral_conv.cu)")
-    return nvcc
-
-
 @functools.lru_cache(maxsize=None)
 def build_library():
     """Compile ``csrc/spectral_conv.cu`` (once per source content) and load
     it.  Raises with the compiler's output if the build fails."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libspectral_conv_{digest}.so"
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"spectral_conv: nvcc failed ({res.returncode})"
-                               f"\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build("spectral_conv.cu")
     for name in ("spectral_conv_f32", "spectral_conv_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \

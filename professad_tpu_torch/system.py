@@ -1,17 +1,24 @@
 """The System class: orbital-free DFT with periodic boundaries (PyTorch).
 
-Port of the ``professad_tpu.system.System`` subset on the density-
-optimization path: setup (cell, ions, recpot interpolation, v_ext), the
-energy assembly, the fused analytic chi gradient, the exact
-uniform-density preconditioner and preconditioned TPGD.
+Port of the ``professad_tpu.system.System`` subset for the density
+optimization and its first derivatives: setup (cell, ions, recpot
+interpolation, v_ext), the energy assembly, the chi gradient (fused
+analytic, or autograd of the energy), the exact uniform-density
+preconditioner, the L-BFGS and TPGD density optimizers with the
+``dE`` / ``dEdchi`` / ``euler`` stopping rules, the convergence
+diagnostics, and the Hellmann-Feynman forces and the stress by autograd.
 
 Precision: the state (cell, ion coordinates, density, v_ext) is held in
-float64 on ``device``; ``dtype`` is the working dtype of the density
-optimization (float32 is the fast tier, float64 the correctness tier).
-After an optimization the stored energy is the solver's own energy at the
-returned iterate (evaluated in ``dtype`` with f64 accumulation) plus the
-ion-ion energy, and the density is stored back in float64.
+float64 on ``device`` (``None`` means ``cuda:0``; pass ``device="cpu"`` for
+the CPU); ``dtype`` is the working dtype of the density optimization
+(float32 is the fast tier, float64 the correctness tier; the L-BFGS paths
+are held to the JAX package in float64 only).  After an optimization the
+stored energy is the solver's own energy at the returned iterate
+(evaluated in ``dtype`` with f64 accumulation) plus the ion-ion energy,
+and the density is stored back in float64.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -20,9 +27,12 @@ from .ops.grid import (wavevecs, volume, safe_sqrt, inv3x3, rfftn, wmean,
                        spectral_convolution)
 from .ops.interp import interpolate
 from .ops import solvers
+from .ops.autodiff import get_functional_derivative
 from .models import ions as ion_utils
+from .models.interaction import IonElectron
 from .utils.constants import A_PER_B, EV_PER_HA, GPA_PER_ATOMIC
 from .utils.naming import term_name
+from .utils.device import resolve_device
 
 __all__ = ["System"]
 
@@ -32,7 +42,8 @@ _F64 = torch.float64
 class System:
     """A periodic system for orbital-free DFT calculations.
 
-    ``device`` / ``dtype``: where the state lives, and the working dtype of
+    ``device`` / ``dtype``: where the state lives (``None`` means
+    ``cuda:0`` and raises without a CUDA device), and the working dtype of
     ``optimize_density`` (see the module docstring)."""
 
     A_per_b = A_PER_B
@@ -51,8 +62,7 @@ class System:
         self._terms = list(terms)
         self._shape = tuple(int(s) for s in shape)
         self._Rc = Rc
-        self._device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self._device = resolve_device(device)
         self._dtype = dtype
         self._Eion_cache = None
         self._shifts = None
@@ -202,6 +212,13 @@ class System:
     def ion_count(self):
         return self._N_ions
 
+    def electron_count(self):
+        return self._N_elec
+
+    def cartesian_ionic_coordinates(self, units="a"):
+        return (self._frac_ion_coords @ self._box_vecs) \
+            * self._unit_factor(units)
+
     def ionic_potential(self, units="Ha"):
         if units == "Ha":
             return self._v_ext
@@ -256,6 +273,21 @@ class System:
             c = 1e-10 * N_elec / vol
             den = (den + c) * (N_elec / (N_elec + c * vol))
         return self._density_terms_energy(box_vecs, den, v_ext)
+
+    def _chi_value_and_grad(self, chi, box_vecs, v_ext, N_elec):
+        """(E, dE/dchi) by autograd of ``_chi_energy``; the graph lives
+        only inside this call."""
+        with torch.enable_grad():
+            x = chi.detach().requires_grad_(True)
+            E = self._chi_energy(x, box_vecs, v_ext, N_elec)
+            (g,) = torch.autograd.grad(E, x)
+        return E.detach(), g
+
+    def _dEdn(self, box_vecs, den, v_ext):
+        """delta E / delta n of the density terms (per unit volume)."""
+        return get_functional_derivative(
+            box_vecs, den,
+            lambda b, n: self._density_terms_energy(b, n, v_ext))
 
     def _chi_value_and_grad_analytic(self, chi, box_vecs, v_ext, N_elec):
         """(E, dE/dchi) via the fused analytic potentials
@@ -386,43 +418,46 @@ class System:
                          from_uniform=False, potentials=None, jit_loop=False,
                          precondition=None, block=6, skip_iters=5, mesh=None,
                          analytic=False):
-        """Minimise the energy over the density.
+        """Minimise the energy over the density, in the working dtype.
 
-        Ported path: ``n_method="TPGD"``, ``analytic=True``,
-        ``precondition=True``, ``conv_target="dE"`` — the fused analytic
-        gradient, the exact uniform-density preconditioner built once per
-        run, and preconditioned TPGD (``ops/solvers.py``) in the working
-        dtype, stopping when |dE| < ``ntol`` eV for ``n_conv_cond_count``
-        iterations in a row after ``skip_iters``.  ``jit_loop`` is accepted
-        for signature parity: the loop is always a host loop reading one
-        scalar per iteration.  Other settings raise NotImplementedError.
-        ``block`` only applies to L-BFGS and is ignored, as in the JAX
-        package's TPGD path.  Returns (iterations, converged)."""
-        if n_method != "TPGD":
-            raise NotImplementedError(
-                f"n_method={n_method!r} is not ported yet (L-BFGS and the "
-                "host-loop optimizers): ROADMAP A6")
-        if not analytic:
-            raise NotImplementedError(
-                "analytic=False (autograd chi gradient) is not ported yet: "
-                "ROADMAP A6")
-        if precondition is not True:
-            raise NotImplementedError(
-                "only precondition=True is ported: ROADMAP A6")
-        if conv_target != "dE":
-            raise NotImplementedError(
-                f"conv_target={conv_target!r} is not ported yet: ROADMAP A6")
+        ``jit_loop=False`` (the default) is the host loop of the JAX
+        package: each outer step is 6 L-BFGS iterations
+        (``precondition=True`` adds the exact uniform-density
+        preconditioner) or one BB1 TPGD step, with the autograd chi
+        gradient (``analytic`` is not read there, as in the JAX package);
+        the convergence measure (``conv_target``: |dE| in eV, max
+        |dE/dchi| or the Euler residual max |mu - dE/dn|) must fall below
+        ``ntol`` for ``n_conv_cond_count`` consecutive outer steps after
+        the first 5.
+
+        ``jit_loop=True`` is the JAX package's whole-optimization program,
+        run here as a host loop that reads one scalar per check: L-BFGS in
+        blocks of ``block`` iterations, or preconditioned BB2 TPGD with
+        stagnation damping, checked after ``skip_iters`` outer steps;
+        ``analytic=True`` takes the fused analytic chi gradient, and
+        ``precondition=True`` the exact preconditioner built once.  In
+        float32 L-BFGS is not expected to converge (its curvature pairs
+        turn into rounding noise near the minimum); TPGD is the f32 path.
+
+        ``potentials=`` and ``mesh=`` are not ported and raise.  Returns
+        (outer steps, converged)."""
         if potentials is not None:
             raise NotImplementedError(
                 "user-supplied potentials are not ported yet: ROADMAP A6")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device runs are not ported yet: ROADMAP A11")
-        from .models.potentials import supported_terms
-        if not supported_terms(self._terms):
-            raise NotImplementedError(
-                "analytic=True needs a fused analytic potential for every "
-                "term; the other functionals are not ported yet: ROADMAP A7")
+        if n_method not in ("LBFGS", "TPGD"):
+            raise ValueError("n_method must be 'LBFGS' or 'TPGD'")
+        if conv_target not in ("dE", "dEdchi", "euler"):
+            raise ValueError("conv_target must be 'dE', 'dEdchi' or 'euler'")
+        if jit_loop and analytic:
+            from .models.potentials import supported_terms
+            if not supported_terms(self._terms):
+                raise NotImplementedError(
+                    "analytic=True needs a fused analytic potential for "
+                    "every term; the other functionals are not ported yet: "
+                    "ROADMAP A7")
 
         if from_uniform:
             self._den = self._uniform_density()
@@ -439,15 +474,28 @@ class System:
         v_ext = self._v_ext.to(dt)
         N_elec = float(self._N_elec)
         chi0 = safe_sqrt(self._den).to(dt)
+        vg_auto = lambda x: self._chi_value_and_grad(x, box, v_ext, N_elec)
+        # the host loop's TPGD step takes no preconditioner
+        aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec))
+               if precondition and (jit_loop or n_method == "LBFGS")
+               else None)
 
-        Mk = self._precond_kernel(box, N_elec)
-        vg = lambda x: self._chi_value_and_grad_analytic(x, box, v_ext,
-                                                         N_elec)
-        state, n_it, conv = solvers.tpgd_minimize(
-            vg, chi0, lr=n_step_size, ntol=ntol,
-            conv_count=n_conv_cond_count, max_iter=round(n_maxiter),
-            f_scale=EV_PER_HA, skip_iters=skip_iters,
-            apply_H0=self._apply_spectral(Mk))
+        if jit_loop:
+            vg = vg_auto if not analytic else (
+                lambda x: self._chi_value_and_grad_analytic(x, box, v_ext,
+                                                            N_elec))
+            minimize = (solvers.tpgd_minimize if n_method == "TPGD"
+                        else functools.partial(solvers.lbfgs_minimize,
+                                               block=block))
+            state, n_it, conv = minimize(
+                vg, chi0, lr=n_step_size, ntol=ntol,
+                conv_count=n_conv_cond_count, max_iter=round(n_maxiter),
+                f_scale=EV_PER_HA, skip_iters=skip_iters, apply_H0=aH0,
+                stop_fn=self._make_stop_fn(conv_target, box, v_ext, N_elec))
+        else:
+            state, n_it, conv = self._host_loop(
+                vg_auto, chi0, n_method, n_step_size, aH0, ntol,
+                n_conv_cond_count, round(n_maxiter), conv_target, n_verbose)
         self._set_den_from_chi(state.x)
         E = state.f.to(_F64)
         if self._has_ion_ion():
@@ -459,10 +507,169 @@ class System:
             print(f"Density optimization {word} in {n_it} step(s)\n")
         return n_it, conv
 
+    def _host_loop(self, vg, chi0, n_method, lr, aH0, ntol, conv_count,
+                   max_iter, conv_target, verbose):
+        """The JAX package's host loop (``system.py:1126-1211``): one
+        outer step per iteration, the stopping rule on the host with the
+        same E_prev bookkeeping, checked from the 6th outer step on."""
+        if n_method == "LBFGS":
+            step = lambda st: solvers.lbfgs_iterations(vg, st, 6, lr,
+                                                       apply_H0=aH0)
+            state = solvers.lbfgs_init(vg, chi0)
+        else:
+            step = lambda st: solvers.tpgd_step(vg, lr, st)
+            state = solvers.tpgd_init(vg, chi0)
+        quad_w = self.volume("b3") / chi0.numel()
+        E_prev = float(state.f) * EV_PER_HA
+        if verbose:
+            print("Starting density optimization")
+            print("{:^8} {:^12} {:^12} {:^18} {:^18}".format(
+                "Iter", "E [eV]", "dE [eV]", "Max |dE/dchi|",
+                "Max |mu-dE/dn|"))
+        conv_counter = it = 0
+        for it in range(1, max_iter + 1):
+            state = step(state)
+            E = float(state.f) * EV_PER_HA
+            dE = E - E_prev
+            E_prev = E
+            dEdchi = euler = None
+            if verbose or conv_target == "dEdchi":
+                dEdchi = float(torch.max(torch.abs(state.g))) / quad_w
+            if verbose or conv_target == "euler":
+                self._set_den_from_chi(state.x)
+                euler = self.check_density_convergence("euler")
+            if verbose:
+                print("{:^8} {:^12.6f} {:^12.6g} {:^18.6g} {:^18.6g}".format(
+                    it, E, dE, dEdchi, euler))
+            stop_var = {"dE": abs(dE), "dEdchi": dEdchi,
+                        "euler": euler}[conv_target]
+            if it > 5:
+                conv_counter = conv_counter + 1 if stop_var < ntol else 0
+            if conv_counter == conv_count:
+                break
+        return state, it, conv_counter == conv_count
+
+    def _make_stop_fn(self, conv_target, box_vecs, v_ext, N_elec):
+        """Convergence measure of the ``jit_loop`` solvers, one evaluation
+        per outer step; ``None`` for 'dE' (the solvers' own |dE|)."""
+        if conv_target == "dE":
+            return None
+        if conv_target == "dEdchi":
+            def stop_fn(st, f_prev):
+                quad_w = volume(box_vecs) / st.x.numel()
+                return torch.max(torch.abs(st.g)) / quad_w
+            return stop_fn
+
+        def stop_fn(st, f_prev):
+            chi = st.x.reshape(self._shape)
+            vol = volume(box_vecs)
+            den = (N_elec / (wmean(chi * chi) * vol)) * chi * chi
+            dEdn = self._dEdn(box_vecs, den, v_ext)
+            mu = wmean(dEdn * den) * vol / N_elec
+            return torch.max(torch.abs(mu - dEdn))
+        return stop_fn
+
     def _set_den_from_chi(self, chi):
         chi = chi.reshape(self._shape)
         N_tilde = wmean(chi * chi) * self.volume("b3")
         self._den = ((self._N_elec / N_tilde) * chi * chi).to(_F64)
+
+    # ------------------------------------------------------------------
+    # convergence diagnostics
+    # ------------------------------------------------------------------
+
+    def functional_derivative(self, type="density"):
+        """delta E / delta n or delta E / delta chi at the stored density,
+        in atomic units (per unit volume: divided by the quadrature
+        weight)."""
+        if type == "density":
+            return self._dEdn(self._box_vecs, self._den, self._v_ext)
+        if type == "chi":
+            _, g = self._chi_value_and_grad(safe_sqrt(self._den),
+                                            self._box_vecs, self._v_ext,
+                                            self._N_elec)
+            return g / (self.volume("b3") / self._den.numel())
+        raise ValueError("type must be 'density' or 'chi'")
+
+    def check_density_convergence(self, method="dEdchi"):
+        """Max |dE/dchi| or the Euler residual max |mu - dE/dn|."""
+        if method == "dEdchi":
+            return float(torch.max(torch.abs(
+                self.functional_derivative("chi"))))
+        if method == "euler":
+            dEdn = self.functional_derivative("density")
+            mu = wmean(dEdn * self._den) * self.volume("b3") / self._N_elec
+            return float(torch.max(torch.abs(mu - dEdn)))
+        raise ValueError("method must be 'dEdchi' or 'euler'")
+
+    def chemical_potential(self):
+        dEdn = self.functional_derivative("density")
+        return float(wmean(dEdn * self._den) * self.volume("b3")
+                     / self._N_elec)
+
+    # ------------------------------------------------------------------
+    # first derivatives: forces and stress
+    # ------------------------------------------------------------------
+
+    def forces(self, units="Ha/b"):
+        """F = -dE/dR by one reverse pass at the fixed density
+        (Hellmann-Feynman: only the ion-electron and ion-ion terms
+        depend on the ions)."""
+        F = self._compute_forces()
+        if units == "Ha/b":
+            return F
+        if units == "eV/a":
+            return F * self.eV_per_Ha / self.A_per_b
+        raise ValueError("units must be 'Ha/b' or 'eV/a'")
+
+    def _compute_forces(self):
+        box = self._box_vecs
+        cart = (self._frac_ion_coords @ box).detach().requires_grad_(True)
+        U = torch.zeros((), dtype=_F64, device=self._device)
+        with torch.enable_grad():
+            if self._needs_vext():
+                U = U + IonElectron(box, self._den,
+                                    self._potential_from_ions(box, cart))
+            if self._has_ion_ion():
+                U = U + self._ion_ion_interaction(box, cart)
+            if not U.requires_grad:
+                return torch.zeros_like(cart)
+            (g,) = torch.autograd.grad(U, cart)
+        return -g
+
+    def stress(self, units="Ha/b3"):
+        """sigma = sym((dE/dh)^T h) / vol, with the density rescaled by
+        vol0 / vol(h) so the electron number stays fixed.  The energy goes
+        through the ``torch.fft`` term bodies, never the spectral-
+        convolution kernel (which has no gradient with respect to its
+        kernel, and so none with respect to the cell)."""
+        return self._compute_stress() * self._pressure_unit(units)
+
+    @staticmethod
+    def _pressure_unit(units):
+        if units == "Ha/b3":
+            return 1.0
+        if units == "eV/a3":
+            return System.eV_per_Ha / System.A_per_b**3
+        if units == "GPa":
+            return System.GPa_per_atomic
+        raise ValueError("units must be 'Ha/b3', 'eV/a3' or 'GPa'")
+
+    def _compute_stress(self):
+        box0 = self._box_vecs
+        vol0 = self.volume("b3")
+        frac = self._frac_ion_coords
+        h = box0.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            den = self._den * vol0 / volume(h)
+            v_ext = (self._potential_from_ions(h, frac @ h)
+                     if self._needs_vext() else self._v_ext)
+            E = self._density_terms_energy(h, den, v_ext)
+            if self._has_ion_ion():
+                E = E + self._ion_ion_interaction(h, frac @ h)
+            (dEdh,) = torch.autograd.grad(E, h)
+        stress = dEdh.T @ box0 / vol0
+        return 0.5 * (stress + stress.T)
 
     # ------------------------------------------------------------------
     # checkpoint / resume

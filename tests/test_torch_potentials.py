@@ -106,7 +106,7 @@ def systems():
                      [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
     ts = tsys.System(4.05 * np.eye(3), SHAPE,
                      [["Al", pot("al.gga.recpot"), frac]], T_TERMS,
-                     units="a", coord_type="fractional")
+                     units="a", coord_type="fractional", device="cpu")
     js = jsys.System.__new__(jsys.System)
     js._terms, js._shape = list(J_TERMS), SHAPE
     return js, ts

@@ -48,7 +48,7 @@ def pair():
     den *= js._N_elec / (den.mean() * js.volume("b3"))
     js.set_density(jnp.asarray(den))
     ts = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
-                coord_type="fractional")
+                coord_type="fractional", device="cpu")
     return js, ts
 
 
@@ -71,7 +71,7 @@ def test_state_from_jax_round_trip(pair):
     ts.load_state_dict(state)
     assert abs(ts.energy() - js.energy()) <= 1e-10 * abs(js.energy())
     again = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
-                   coord_type="fractional")
+                   coord_type="fractional", device="cpu")
     again.load_state_dict(ts.state_dict())
     assert again.energy() == ts.energy()
 
@@ -123,7 +123,7 @@ def test_golden_energy_fcc_al_through_tpgd_path():
                              [0.5, 0.0, 0.5]])
     s = System(cell, (18, 18, 18), [["Al", pot("al.gga.recpot"),
                                      np.zeros((1, 3))]], T_TERMS,
-               units="a", coord_type="fractional")
+               units="a", coord_type="fractional", device="cpu")
     n_it, conv = s.optimize_density(ntol=1e-7, n_method="TPGD",
                                     analytic=True, precondition=True,
                                     n_step_size=1.0, skip_iters=2,
@@ -133,22 +133,45 @@ def test_golden_energy_fcc_al_through_tpgd_path():
     assert s.density().dtype == torch.float64
 
 
+def _potentials(box_vecs, den):
+    raise AssertionError("never evaluated")
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(n_method="LBFGS", analytic=True, precondition=True),
-    dict(n_method="TPGD", analytic=False, precondition=True),
-    dict(n_method="TPGD", analytic=True, precondition=None),
-    dict(n_method="TPGD", analytic=True, precondition=True,
-         conv_target="euler"),
+    dict(n_method="LBFGS", potentials=_potentials),
+    dict(n_method="TPGD", analytic=False, jit_loop=True, mesh=object()),
+    dict(n_method="TPGD", precondition=None, potentials=_potentials),
+    dict(n_method="TPGD", conv_target="euler", mesh=object()),
 ], ids=["lbfgs", "autograd", "unpreconditioned", "euler"])
 def test_unported_options_raise(pair, kwargs):
+    """What is still not ported (user-supplied potentials, multi-device
+    runs) raises with its ROADMAP item, on every solver setting."""
     _, ts = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.optimize_density(**kwargs)
 
 
+def test_no_device_means_the_card():
+    """``device=None`` means cuda:0: without a card, building a System or
+    converting a JAX state raises rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; tests/test_torch_cuda.py "
+                    "checks the default there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+               coord_type="fractional")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        system_state_from_jax({"box_vecs": np.eye(3),
+                               "frac_ion_coords": np.zeros((1, 3)),
+                               "den": np.ones(SHAPE), "v_ext": np.ones(SHAPE),
+                               "N_elec": 3, "shape": SHAPE, "ions": []})
+
+
 def test_import_loads_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys, professad_tpu_torch; "
+    code = ("import importlib, pkgutil, sys, professad_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "professad_tpu_torch.__path__, 'professad_tpu_torch.')]; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'professad_tpu' "
             "or m.startswith('professad_tpu.')]; "
