@@ -10,13 +10,16 @@ Phases (any failure exits non-zero):
   2. build csrc/spectral_conv.cu and csrc/stockham.cu with nvcc (sm_90a),
      one nvcc per source, both started together;
   3. spectral_conv vs its plain version, f32 and f64, forward and
-     backward, at 18^3, (9, 15, 7) and 128^3; tolerances f32 rel 5e-6
-     (<= 32^3) / 2e-5 (128^3: three O(n) FMA sums per direction), f64 rel
-     1e-12; per-call times of both at 128^3;
+     backward, at 18^3, (9, 15, 7), the odd and prime shapes (31, 37, 45),
+     (61, 18, 7), (45, 45, 45), at 128^3 and 256^3; tolerances f32 rel 5e-6,
+     f64 rel 1e-12; per-call times at 128^3 of the kernel, its plain
+     version and the bare cuFFT composition irfftn(K rfftn(x)) (three
+     calls: rfftn, the product, irfftn), each issued eagerly and replayed
+     from a CUDA graph (device time without the host's dispatch);
   4. the five Stockham kernels (ops/vpufft.py) vs their torch.fft versions
      at the JAX test shapes, (128, 8320) and 256^3, rel 1e-6 (max abs error
-     over max |plain|); per-call times at 256^3 beside the torch.fft call
-     and the HBM bound;
+     over max |plain|); per-call times at 256^3 (eager and from a CUDA
+     graph) beside the torch.fft call and the HBM bound;
   5. the butterfly path, launch counts reset just before it: the 256^3
      go/no-go of the JAX bench (chained feedback pairs
      y / (1 + mean(y^2)), 20 each) timing the cuFFT pair
@@ -88,6 +91,32 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def graph_time_ms(fn, reps):
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so that the host's dispatch between launches does not count
+    (``cuda_time_ms`` times the same calls issued eagerly)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def bound(nbytes, flops):
     """Least time the card could take (ms): the larger of the bytes over
     the HBM rate and the FP32 operations over the FP32 peak."""
@@ -96,20 +125,25 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def phase_kernel(device):
-    """Kernel vs plain version; returns the 128^3 f32 numbers."""
+KERNEL_SHAPES = ((18, 18, 18), (9, 15, 7), (31, 37, 45), (61, 18, 7),
+                 (45, 45, 45), (128, 128, 128), (256, 256, 256))
+
+
+def phase_kernel(device, shapes=KERNEL_SHAPES, timed=(128, 128, 128)):
+    """Kernel vs plain version; returns the numbers at the timed shape per
+    dtype: (max abs error, rel error, kernel ms, plain ms, cuFFT ms) timed
+    eagerly, and the same three replayed from a CUDA graph."""
     import torch
     from professad_tpu_torch.ops import spectral_conv as sc
 
     rng = np.random.default_rng(0)
     out = {}
-    for shape in ((18, 18, 18), (9, 15, 7), (128, 128, 128)):
+    for shape in shapes:
         x_np = rng.standard_normal(shape)
         K_np = rng.random((shape[0], shape[1], shape[2] // 2 + 1))
         ct_np = rng.standard_normal(shape)
         for dt in (torch.float32, torch.float64):
-            tol = 1e-12 if dt == torch.float64 else (
-                2e-5 if max(shape) > 32 else 5e-6)
+            tol = 1e-12 if dt == torch.float64 else 5e-6
             K = torch.tensor(K_np, dtype=dt, device=device)
             ct = torch.tensor(ct_np, dtype=dt, device=device)
             xk = torch.tensor(x_np, dtype=dt, device=device,
@@ -127,15 +161,28 @@ def phase_kernel(device):
                 f"bwd rel {eb:.3e} (tol {tol:g}) max abs {abs_err:.3e}")
             if not (ef < tol and eb < tol):
                 raise AssertionError(f"kernel disagrees at {shape} {dt}")
-            if shape == (128, 128, 128):
+            if shape == timed:
                 with torch.no_grad():
                     xd = xk.detach()
                     ms = cuda_time_ms(lambda: sc.spectral_conv(xd, K), 20)
                     pms = cuda_time_ms(
                         lambda: sc.spectral_conv_reference(xd, K), 20)
-                log(f"[kernel] 128^3 {str(dt)[6:]} per call: kernel "
-                    f"{ms:.4f} ms, plain torch.fft {pms:.4f} ms")
-                out[dt] = (abs_err, ef, ms, pms)
+                    lms = cuda_time_ms(lambda: torch.fft.irfftn(
+                        K * torch.fft.rfftn(xd), s=shape), 20)
+                    graph = tuple(graph_time_ms(f, 20) for f in (
+                        lambda: sc.spectral_conv(xd, K),
+                        lambda: sc.spectral_conv_reference(xd, K),
+                        lambda: torch.fft.irfftn(K * torch.fft.rfftn(xd),
+                                                 s=shape)))
+                    ms2 = cuda_time_ms(lambda: sc.spectral_conv(xd, K), 20)
+                log(f"[kernel] {shape} {str(dt)[6:]} per call, eager: kernel "
+                    f"{ms:.4f} ms (again {ms2:.4f}), plain torch.fft "
+                    f"{pms:.4f} ms, cuFFT irfftn(K rfftn(x)) {lms:.4f} ms "
+                    f"(kernel / cuFFT {ms / lms:.2f}x); from a CUDA graph: "
+                    f"kernel {graph[0]:.4f} ms, plain {graph[1]:.4f} ms, "
+                    f"cuFFT {graph[2]:.4f} ms "
+                    f"({graph[0] / graph[2]:.2f}x)")
+                out[dt] = (abs_err, ef, ms, pms, lms, graph)
     return out
 
 
@@ -217,14 +264,20 @@ def phase_stockham(device, shapes=((32, 256), (16, 256), (128, 8320),
                 ms = cuda_time_ms(lambda: fn(*args), 20)
                 pms = cuda_time_ms(lambda: ref(*args), 20)
                 lms = None if lib is None else cuda_time_ms(lib, 20)
+                gms = graph_time_ms(lambda: fn(*args), 20)
+                glms = None if lib is None else graph_time_ms(lib, 20)
                 bms, by = bound(nbytes, flops)
                 out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms,
-                                 library_ms=lms, bound_ms=bms, bound_by=by)
+                                 library_ms=lms, bound_ms=bms, bound_by=by,
+                                 graph_ms=gms, library_graph_ms=glms)
                 msg += (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                         f"torch.fft call "
                         f"{'n/a' if lms is None else f'{lms:.4f} ms'}, "
                         f"bound {bms:.4f} ms ({by}, "
-                        f"{100 * bms / ms:.1f}% of it)")
+                        f"{100 * bms / ms:.1f}% of it); from a CUDA graph: "
+                        f"kernel {gms:.4f} ms ({100 * bms / gms:.1f}%), "
+                        f"torch.fft call "
+                        f"{'n/a' if glms is None else f'{glms:.4f} ms'}")
             log(msg)
     return out
 
@@ -534,7 +587,7 @@ def main():
     phase_golden(device)
     phase_fd_forces(device)
 
-    abs_err, _, ms, pms = kern[torch.float32]
+    abs_err, _, ms, pms, lms, graph = kern[torch.float32]
     n = 128
     bms, by = bound(4 * (2 * n ** 3 + n * n * (n // 2 + 1)),
                     2 * 2.5 * n ** 3 * np.log2(n ** 3))
@@ -544,7 +597,10 @@ def main():
         "replaces": "professad_tpu/ops/pallas_fft.py:229",
         "launches": res["launches"], "max_abs_err": abs_err,
         "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None, "lib_ms": None}]
+        "library_ms": lms, "lib_ms": lms,
+        "library_call": "irfftn(K * rfftn(x)): three calls",
+        "graph_ms": graph[0], "plain_graph_ms": graph[1],
+        "library_graph_ms": graph[2]}]
     for name, replaces in STOCKHAM.items():
         st = stock[name]
         kernels.append({
@@ -554,7 +610,8 @@ def main():
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-            "lib_ms": st["library_ms"]})
+            "lib_ms": st["library_ms"], "graph_ms": st["graph_ms"],
+            "library_graph_ms": st["library_graph_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,183 +6,306 @@
 // kernel and the exact preconditioner.
 //
 // What it computes, for real x (n0, n1, n2) and a real half-spectrum K
-// (n0, n1, m2), m2 = n2/2 + 1, in the torch.fft / jnp.fft convention:
-//   1. real DFT along z                     x   -> a   (n0, n1, m2) complex
-//   2. complex DFT along y                  a   -> b
-//   3. complex DFT along x, times K         b   -> a
-//   4. inverse complex DFT along x          a   -> b
-//   5. inverse complex DFT along y          b   -> a
-//   6. inverse real DFT along z, Hermitian weights 1 / 2 / 1 and the 1/N
-//      normalisation; the imaginary parts of the kz = 0 and Nyquist columns
-//      are dropped, as a c2r transform does.
+// (n0, n1, m2), m2 = n2/2 + 1, in the torch.fft / jnp.fft convention, in five
+// launches over one complex (n0, n1, m2) intermediate the caller allocates:
+//   1. real FFT along z                      x -> buf
+//   2. FFT along y                           buf -> buf (in place)
+//   3. FFT along x, times K, inverse FFT     buf -> buf (in place)
+//   4. inverse FFT along y                   buf -> buf (in place)
+//   5. inverse real FFT along z and 1/N      buf -> y
+// Every pass is the shared-memory Stockham core of fft_core.cuh on a tile of
+// one axis x W columns: O(n log n) per line for composite n (a prime factor
+// p >= 7 costs a direct p-point DFT stage).  The passes along y and x
+// transform the middle axis of (outer, n, inner) tiles whose W columns are
+// contiguous: W x sizeof(complex) = 128 bytes per row segment.  A tile is read
+// whole before it is written, so those passes run in place.
 //
-// What bounds it on this card: every pass is a direct O(n) DFT per output,
-// so a 128^3 convolution is ~2.7e9 FMAs on the CUDA cores (FP32 or FP64,
-// never TF32 or tensor cores: the TPU kernel needed Precision.HIGHEST for
-// f32 accuracy), against ~50 MB of device-memory traffic; it is bound by
-// FMA issue and by the L1/L2 traffic of re-reading each line n times, not by
-// HBM.  What the design does about it: one thread per output, with the
-// contraction axis walked so that a warp's loads are coalesced (x, y
-// passes: neighbouring threads read neighbouring kz) or broadcast (z
-// passes: the warp shares one row); twiddles come from a length-n cos/sin
-// table computed in double on the host and indexed by (j*k) mod n, which
-// reduces every angle exactly and keeps the error at table rounding.  The
-// complex intermediates live in two device buffers the caller allocates.
-// Shared-memory Stockham passes, TMA and pass fusion are later work.
+// The z passes pack two real rows into one complex line: rows r and r + W of
+// a tile of 2W rows are the real and imaginary parts of column r.  Forward,
+// X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i.
+// Inverse, Z = A + i B over the Hermitian extension of both half spectra,
+// with the imaginary parts of the kz = 0 column and, for even n2, of the
+// Nyquist column dropped, as a c2r transform does; y_a = Re z, y_b = Im z.
 //
-// C interface (loaded with ctypes): each entry point launches the six passes
-// on the given stream and returns cudaGetLastError().
+// What bounds it on this card: x, K and y are 21 MB at 128^3 f32, 6.3 us at
+// 3.35 TB/s; the FFT work (~0.22 GFLOP) is 3.3 us at the FP32 rate (FP32 or
+// FP64 FMAs, never TF32: the TPU kernel needed Precision.HIGHEST for f32
+// accuracy).  The five launches move ~89 MB (the intermediate mostly through
+// the 50 MB L2), so the design is bound by that traffic and by the stage
+// synchronisations, not by arithmetic.
+//
+// C interface (loaded with ctypes): each entry point launches the five
+// passes on the given stream and returns the first CUDA error, or 0.
 
 #include <cuda_runtime.h>
 
-template <typename T> struct Complex;
-template <> struct Complex<float> { typedef float2 type; };
-template <> struct Complex<double> { typedef double2 type; };
+#include "fft_core.cuh"
 
-template <typename T>
-__device__ __forceinline__ typename Complex<T>::type make_c(T re, T im) {
-    typename Complex<T>::type v;
-    v.x = re;
-    v.y = im;
-    return v;
-}
+namespace {
 
-// 1. real DFT along the contiguous axis: x (rows, n) -> out (rows, m)
-template <typename T>
-__global__ void rdft_last(const T* __restrict__ x,
-                          typename Complex<T>::type* __restrict__ out,
-                          const typename Complex<T>::type* __restrict__ tw,
-                          long long rows, int n, int m) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= rows * m) return;
-    long long r = t / m;
-    int k = (int)(t - r * m);
-    const T* row = x + r * n;
-    T re = 0, im = 0;
-    int jk = 0;                         // (j * k) mod n
-    for (int j = 0; j < n; ++j) {
-        T v = row[j];
-        typename Complex<T>::type w = tw[jk];
-        re += v * w.x;                  // v e^{-i theta}
-        im -= v * w.y;
-        jk += k;
-        if (jk >= n) jk -= n;
+using fftcore::Cx;
+using fftcore::cx;
+
+struct Axis {
+  int n;          // length
+  int logw;       // log2 of the tile's columns
+  int nst;        // stages
+  int ntw;        // twiddles
+  const int* plan;
+};
+
+// 1. real FFT along the contiguous axis: x (rows, n) -> out (rows, m)
+template <typename T, bool MIXED>
+__global__ void __launch_bounds__(fftcore::kMaxThreads)
+rfft_z(const T* __restrict__ x, typename Cx<T>::type* __restrict__ out,
+       const typename Cx<T>::type* __restrict__ tw, Axis a, long long rows) {
+  typedef typename Cx<T>::type C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* s = reinterpret_cast<C*>(smem_raw);
+  const int n = a.n, W = 1 << a.logw, pitch = W + 1, m = n / 2 + 1;
+  const long long r0 = (long long)blockIdx.x * 2 * W;
+  const long long nv = min((long long)2 * W, rows - r0);  // valid rows
+  // 2W rows of n reals, all of a thread's loads issued before its stores
+  const C* stw;
+  const int* splan;
+  fftcore::stage_tables(s + n * pitch, tw, a.ntw, a.plan, a.nst, &stw,
+                        &splan);
+  T* sr = reinterpret_cast<T*>(s);
+  T v[2 * fftcore::kPerThread];
+  const long long nx = nv * n;
+#pragma unroll
+  for (int i = 0; i < 2 * fftcore::kPerThread; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < 2 * W * n) v[i] = e < nx ? x[r0 * n + e] : T(0);
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * fftcore::kPerThread; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < 2 * W * n) {
+      const int rr = e / n;
+      const int z = e - rr * n;
+      sr[2 * (z * pitch + (rr & (W - 1))) + (rr >> a.logw)] = v[i];
     }
-    out[t] = make_c<T>(re, im);
+  }
+  __pipeline_wait_prior(0);  // the stage tables
+  __syncthreads();
+  fftcore::fft_tile<T, MIXED>(s, n, a.logw, pitch, splan, a.nst, stw, false);
+  for (int e = threadIdx.x; e < nv * m; e += blockDim.x) {
+    const int rr = e / m;
+    const int k = e - rr * m;
+    const int c = rr & (W - 1);
+    const C z1 = s[k * pitch + c];
+    const C z2 = s[(k == 0 ? 0 : n - k) * pitch + c];
+    const T h = T(0.5);
+    out[r0 * m + e] = (rr < W)
+        ? cx<T>(h * (z1.x + z2.x), h * (z1.y - z2.y))
+        : cx<T>(h * (z1.y + z2.y), h * (z2.x - z1.x));
+  }
 }
 
-// 2-5. complex DFT along a middle axis of (outer, n, inner); forward uses
-// e^{-i theta}, inverse e^{+i theta} (unnormalised).  MULK multiplies the
-// result by the real K, laid out like the output.
-template <typename T, bool INVERSE, bool MULK>
-__global__ void dft_axis(const typename Complex<T>::type* __restrict__ in,
-                         typename Complex<T>::type* __restrict__ out,
-                         const typename Complex<T>::type* __restrict__ tw,
-                         const T* __restrict__ K,
-                         long long outer, int n, long long inner) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= outer * n * inner) return;
-    long long c = t % inner;
-    long long rest = t / inner;
-    int k = (int)(rest % n);
-    long long o = rest / n;
-    const typename Complex<T>::type* base = in + o * (long long)n * inner + c;
-    T re = 0, im = 0;
-    int jk = 0;
-    for (int j = 0; j < n; ++j) {
-        typename Complex<T>::type v = base[(long long)j * inner];
-        typename Complex<T>::type w = tw[jk];
-        if (INVERSE) {
-            re += v.x * w.x - v.y * w.y;
-            im += v.y * w.x + v.x * w.y;
-        } else {
-            re += v.x * w.x + v.y * w.y;
-            im += v.y * w.x - v.x * w.y;
+// 2-4. FFT along the middle axis of (outer, n, inner), in place.  MULK:
+// forward, times the real K (laid out like the data), inverse.
+template <typename T, bool MIXED, bool MULK>
+__global__ void __launch_bounds__(fftcore::kMaxThreads)
+fft_mid(typename Cx<T>::type* __restrict__ buf, const T* __restrict__ K,
+        const typename Cx<T>::type* __restrict__ tw, Axis a, long long inner,
+        int inverse) {
+  typedef typename Cx<T>::type C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* s = reinterpret_cast<C*>(smem_raw);
+  const int n = a.n, W = 1 << a.logw, pitch = W + 1;
+  const long long c0 = (long long)blockIdx.x * W;
+  const int nc = (int)min((long long)W, inner - c0);
+  const long long base = (long long)blockIdx.y * n * inner + c0;
+  const C* stw;
+  const int* splan;
+  fftcore::stage_tables(s + n * pitch, tw, a.ntw, a.plan, a.nst, &stw,
+                        &splan);
+  fftcore::gather(s, n << a.logw, a.logw, pitch, [&](int e) {
+    const int c = e & (W - 1);
+    return c < nc ? buf[base + (e >> a.logw) * inner + c]
+                  : cx<T>(T(0), T(0));
+  });
+  fftcore::fft_tile<T, MIXED>(s, n, a.logw, pitch, splan, a.nst, stw,
+                       !MULK && inverse);
+  if (MULK) {
+    fftcore::scale_tile(s, n << a.logw, a.logw, pitch, [&](int e) {
+      const int c = e & (W - 1);
+      return c < nc ? K[base + (e >> a.logw) * inner + c] : T(0);
+    });
+    fftcore::fft_tile<T, MIXED>(s, n, a.logw, pitch, splan, a.nst, stw, true);
+  }
+  for (int e = threadIdx.x; e < (n << a.logw); e += blockDim.x) {
+    const int r = e >> a.logw;
+    const int c = e & (W - 1);
+    if (c < nc) buf[base + r * inner + c] = s[r * pitch + c];
+  }
+}
+
+// 5. inverse real FFT along the contiguous axis: in (rows, m) -> y (rows, n)
+template <typename T, bool MIXED>
+__global__ void __launch_bounds__(fftcore::kMaxThreads)
+irfft_z(const typename Cx<T>::type* __restrict__ in, T* __restrict__ y,
+        const typename Cx<T>::type* __restrict__ tw, Axis a, long long rows,
+        T scale) {
+  typedef typename Cx<T>::type C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* s = reinterpret_cast<C*>(smem_raw);
+  const int n = a.n, W = 1 << a.logw, pitch = W + 1, m = n / 2 + 1;
+  const long long r0 = (long long)blockIdx.x * 2 * W;
+  const long long nv = min((long long)2 * W, rows - r0);
+  const C* stw;
+  const int* splan;
+  fftcore::stage_tables(s + n * pitch, tw, a.ntw, a.plan, a.nst, &stw,
+                        &splan);
+  // Z = A + i B in two sweeps: the A rows set Z[k] and Z[n-k], then the B
+  // rows add i B[k] and i conj B[k] to them.
+  for (int part = 0; part < 2; ++part) {
+    // W rows of m values, all of a thread's loads issued before its stores
+    C u[fftcore::kPerThread];
+    const long long nx = min((long long)W, nv - part * W) * m;
+#pragma unroll
+    for (int i = 0; i < fftcore::kPerThread; ++i) {
+      const int e = threadIdx.x + i * blockDim.x;
+      if (e < W * m)
+        u[i] = e < nx ? in[(r0 + part * W) * m + e] : cx<T>(T(0), T(0));
+    }
+#pragma unroll
+    for (int i = 0; i < fftcore::kPerThread; ++i) {
+      const int e = threadIdx.x + i * blockDim.x;
+      if (e >= W * m) continue;
+      const int c = e / m;
+      const int k = e - c * m;
+      C v = u[i];
+      if (k == 0 || 2 * k == n) v.y = T(0);
+      const bool mirror = k > 0 && n - k >= m;
+      C* zk = &s[k * pitch + c];
+      C* zm = &s[(n - k) * pitch + c];
+      if (part == 0) {
+        *zk = v;
+        if (mirror) *zm = cx<T>(v.x, -v.y);
+      } else {
+        zk->x -= v.y;
+        zk->y += v.x;
+        if (mirror) {
+          zm->x += v.y;
+          zm->y += v.x;
         }
-        jk += k;
-        if (jk >= n) jk -= n;
+      }
     }
-    if (MULK) {
-        T kv = K[t];
-        re *= kv;
-        im *= kv;
-    }
-    out[t] = make_c<T>(re, im);
+    __pipeline_wait_prior(0);  // the stage tables
+    __syncthreads();
+  }
+  fftcore::fft_tile<T, MIXED>(s, n, a.logw, pitch, splan, a.nst, stw, true);
+  for (int e = threadIdx.x; e < nv * n; e += blockDim.x) {
+    const int rr = e / n;
+    const int z = e - rr * n;
+    const C v = s[z * pitch + (rr & (W - 1))];
+    y[r0 * n + e] = scale * ((rr < W) ? v.x : v.y);
+  }
 }
 
-// 6. inverse real DFT along the contiguous axis: in (rows, m) -> y (rows, n)
+Axis axis(int n, int w, int nst, int ntw, const int* plan) {
+  Axis a;
+  a.n = n;
+  a.logw = fftcore::ilog2(w);
+  a.nst = nst;
+  a.ntw = ntw;
+  a.plan = plan;
+  return a;
+}
+
+template <typename T, bool MIXED>
+int run(const T* x, const T* K, T* y, T* buf_raw, const T* tw0,
+        const T* tw1, const T* tw2, const int* pl0, const int* pl1,
+        const int* pl2, int nst0, int nst1, int nst2, int ntw0, int ntw1,
+        int ntw2, int n0, int n1, int n2, int wz, int wy, int wx,
+        cudaStream_t stream) {
+  typedef typename Cx<T>::type C;
+  using fftcore::tile_smem;
+  using fftcore::tile_threads;
+  const int m2 = n2 / 2 + 1;
+  const long long rows = (long long)n0 * n1;
+  C* buf = reinterpret_cast<C*>(buf_raw);
+  const C* t0 = reinterpret_cast<const C*>(tw0);
+  const C* t1 = reinterpret_cast<const C*>(tw1);
+  const C* t2 = reinterpret_cast<const C*>(tw2);
+  const Axis az = axis(n2, wz, nst2, ntw2, pl2);
+  const Axis ay = axis(n1, wy, nst1, ntw1, pl1);
+  const Axis ax = axis(n0, wx, nst0, ntw0, pl0);
+  const size_t sz = tile_smem<T>(n2, wz, ntw2, nst2),
+               sy = tile_smem<T>(n1, wy, ntw1, nst1),
+               sx = tile_smem<T>(n0, wx, ntw0, nst0);
+  cudaError_t err;
+  if ((err = fftcore::allow_smem(rfft_z<T, MIXED>, sz)) != cudaSuccess ||
+      (err = fftcore::allow_smem(irfft_z<T, MIXED>, sz)) != cudaSuccess ||
+      (err = fftcore::allow_smem(fft_mid<T, MIXED, false>, sy)) !=
+          cudaSuccess ||
+      (err = fftcore::allow_smem(fft_mid<T, MIXED, true>, sx)) !=
+          cudaSuccess)
+    return (int)err;
+
+  const unsigned gz = (unsigned)((rows + 2 * wz - 1) / (2 * wz));
+  const dim3 gy((m2 + wy - 1) / wy, n0);
+  const dim3 gx((unsigned)((rows / n0 * m2 + wx - 1) / wx), 1);
+  const T scale = T(1) / (T(n0) * T(n1) * T(n2));
+  rfft_z<T, MIXED><<<gz, tile_threads(n2, wz), sz, stream>>>(x, buf, t2, az,
+                                                             rows);
+  fft_mid<T, MIXED, false><<<gy, tile_threads(n1, wy), sy, stream>>>(
+      buf, nullptr, t1, ay, m2, 0);
+  fft_mid<T, MIXED, true><<<gx, tile_threads(n0, wx), sx, stream>>>(
+      buf, K, t0, ax, rows / n0 * m2, 0);
+  fft_mid<T, MIXED, false><<<gy, tile_threads(n1, wy), sy, stream>>>(
+      buf, nullptr, t1, ay, m2, 1);
+  irfft_z<T, MIXED><<<gz, tile_threads(n2, wz), sz, stream>>>(
+      buf, y, t2, az, rows, scale);
+  return (int)cudaGetLastError();
+}
+
+// The power-of-two instance where every axis allows it, else the mixed one.
 template <typename T>
-__global__ void irdft_last(const typename Complex<T>::type* __restrict__ in,
-                           T* __restrict__ y,
-                           const typename Complex<T>::type* __restrict__ tw,
-                           long long rows, int n, int m, T scale) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= rows * n) return;
-    long long r = t / n;
-    int z = (int)(t - r * n);
-    const typename Complex<T>::type* row = in + r * m;
-    T acc = 0;
-    int jk = 0;                         // (k * z) mod n
-    for (int k = 0; k < m; ++k) {
-        typename Complex<T>::type v = row[k];
-        typename Complex<T>::type w = tw[jk];
-        T term = v.x * w.x - v.y * w.y;   // Re(v e^{+i theta})
-        acc += (k == 0 || 2 * k == n) ? term : T(2) * term;
-        jk += z;
-        if (jk >= n) jk -= n;
-    }
-    y[t] = acc * scale;
+int run_any(const T* x, const T* K, T* y, T* buf, const T* tw0, const T* tw1,
+            const T* tw2, const int* pl0, const int* pl1, const int* pl2,
+            int nst0, int nst1, int nst2, int ntw0, int ntw1, int ntw2,
+            int n0, int n1, int n2, int wz, int wy, int wx,
+            cudaStream_t stream) {
+  using fftcore::is_pow2;
+  if (is_pow2(n0) && is_pow2(n1) && is_pow2(n2))
+    return run<T, false>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
+                         nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx,
+                         stream);
+  return run<T, true>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0, nst1,
+                      nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx, stream);
 }
 
-static inline unsigned int n_blocks(long long n, int tpb) {
-    return (unsigned int)((n + tpb - 1) / tpb);
-}
+}  // namespace
 
-template <typename T>
-static int run(const T* x, const T* K, T* y, T* buf_a, T* buf_b,
-               const T* tw0, const T* tw1, const T* tw2,
-               int n0, int n1, int n2, cudaStream_t stream) {
-    typedef typename Complex<T>::type C;
-    const int tpb = 256;
-    const int m2 = n2 / 2 + 1;
-    const long long rows = (long long)n0 * n1;
-    const long long nc = rows * m2;
-    C* a = reinterpret_cast<C*>(buf_a);
-    C* b = reinterpret_cast<C*>(buf_b);
-    const C* t0 = reinterpret_cast<const C*>(tw0);
-    const C* t1 = reinterpret_cast<const C*>(tw1);
-    const C* t2 = reinterpret_cast<const C*>(tw2);
-    const unsigned int gc = n_blocks(nc, tpb);
-
-    rdft_last<T><<<gc, tpb, 0, stream>>>(x, a, t2, rows, n2, m2);
-    dft_axis<T, false, false><<<gc, tpb, 0, stream>>>(a, b, t1, nullptr,
-                                                      n0, n1, m2);
-    dft_axis<T, false, true><<<gc, tpb, 0, stream>>>(b, a, t0, K,
-                                                     1, n0, rows / n0 * m2);
-    dft_axis<T, true, false><<<gc, tpb, 0, stream>>>(a, b, t0, nullptr,
-                                                     1, n0, rows / n0 * m2);
-    dft_axis<T, true, false><<<gc, tpb, 0, stream>>>(b, a, t1, nullptr,
-                                                     n0, n1, m2);
-    const T scale = T(1) / (T(n0) * T(n1) * T(n2));
-    irdft_last<T><<<n_blocks(rows * n2, tpb), tpb, 0, stream>>>(
-        a, y, t2, rows, n2, m2, scale);
-    return (int)cudaGetLastError();
-}
-
+// x, K, y: the arrays; buf: (n0, n1, m2) complex scratch; twN / plN / nstN /
+// ntwN: the twiddles, stage plan, stage count and twiddle count of axis N
+// (ops/fft_plan.py); wz, wy, wx: the tile widths of the z, y and x passes
+// (powers of two).
 extern "C" int spectral_conv_f32(const float* x, const float* K, float* y,
-                                 float* buf_a, float* buf_b,
-                                 const float* tw0, const float* tw1,
-                                 const float* tw2, int n0, int n1, int n2,
+                                 float* buf, const float* tw0,
+                                 const float* tw1, const float* tw2,
+                                 const int* pl0, const int* pl1,
+                                 const int* pl2, int nst0, int nst1, int nst2,
+                                 int ntw0, int ntw1, int ntw2, int n0, int n1,
+                                 int n2, int wz, int wy, int wx,
                                  void* stream) {
-    return run<float>(x, K, y, buf_a, buf_b, tw0, tw1, tw2, n0, n1, n2,
-                      static_cast<cudaStream_t>(stream));
+  return run_any<float>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
+                        nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int spectral_conv_f64(const double* x, const double* K, double* y,
-                                 double* buf_a, double* buf_b,
-                                 const double* tw0, const double* tw1,
-                                 const double* tw2, int n0, int n1, int n2,
+                                 double* buf, const double* tw0,
+                                 const double* tw1, const double* tw2,
+                                 const int* pl0, const int* pl1,
+                                 const int* pl2, int nst0, int nst1, int nst2,
+                                 int ntw0, int ntw1, int ntw2, int n0, int n1,
+                                 int n2, int wz, int wy, int wx,
                                  void* stream) {
-    return run<double>(x, K, y, buf_a, buf_b, tw0, tw1, tw2, n0, n1, n2,
-                       static_cast<cudaStream_t>(stream));
+  return run_any<double>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
+                         nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy,
+                         wx, static_cast<cudaStream_t>(stream));
 }

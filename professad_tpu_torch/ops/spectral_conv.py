@@ -3,15 +3,19 @@ plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``professad_tpu/ops/pallas_fft.py::
 spectral_conv`` (its three ``pl.pallas_call`` passes from
-``_make_kernels``).  The kernel source is ``csrc/spectral_conv.cu``; it is a
-direct-DFT design in FP32/FP64 FMA arithmetic (no TF32, no tensor cores),
-bound by FMA issue and L1/L2 re-reads rather than by device memory — the
-source note says how.  It is built by ``ops/cuda_build.py`` at first use.
+``_make_kernels``).  The kernel source is ``csrc/spectral_conv.cu``: five
+launches of the shared-memory mixed-radix Stockham core
+(``csrc/fft_core.cuh``) over one complex intermediate, in FP32/FP64 FMA
+arithmetic (no TF32, no tensor cores); the source note says what bounds it.
+The stage plans and tile widths come from ``ops/fft_plan.py``; the longest
+axis is ``fft_plan.MAX_AXIS``.  It is built by ``ops/cuda_build.py`` at
+first use.
 
 Dispatch: :func:`spectral_conv` runs :func:`spectral_conv_reference` (the
 ``torch.fft`` composition) for CPU tensors only.  For CUDA tensors it
 launches the kernel or raises: there is no fallback.  ``launches`` counts
-the kernel launches (forward and backward) in this process.
+the kernel calls (forward and backward; each is five CUDA launches) in this
+process.
 
 f32 fields are DC-split like ``grid.rfftn``: the kernel convolves
 ``x - wmean(x)`` and ``K[0,0,0] * wmean(x)`` is added back, so uniform
@@ -24,9 +28,9 @@ a silent dK = 0.
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
+from . import fft_plan
 from .cuda_build import build
 from .grid import wmean
 
@@ -53,37 +57,52 @@ def build_library():
     lib = build("spectral_conv.cu")
     for name in ("spectral_conv_f32", "spectral_conv_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
+def _widths(shape, itemsize):
+    """Tile widths of the z, y and x passes: 128-byte row segments of
+    complex values where the axis and the columns allow."""
+    n0, n1, n2 = shape
+    m2 = n2 // 2 + 1
+    full = 128 // (2 * itemsize)
+    return (fft_plan.tile_width(n2, n0 * n1, full, itemsize),
+            fft_plan.tile_width(n1, m2, full, itemsize),
+            fft_plan.tile_width(n0, n1 * m2, full, itemsize))
+
+
 @functools.lru_cache(maxsize=None)
-def _twiddles(n, dtype, device):
-    """(n, 2) table of cos, sin(2 pi j / n), computed in double."""
-    ang = 2.0 * np.pi * np.arange(n) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)], axis=1)
-    return torch.as_tensor(tab, dtype=dtype, device=device).contiguous()
+def _plan_args(shape, dtype, device):
+    """The C entry's plan arguments for one shape: the twiddle and plan
+    pointers, stage counts and twiddle counts of the three axes, the sizes
+    and the tile widths (the tensors stay alive in
+    ``fft_plan.device_plan``'s cache)."""
+    plans = [fft_plan.device_plan(n, dtype, device) for n in shape]
+    return (*(p[2].data_ptr() for p in plans),
+            *(p[0].data_ptr() for p in plans), *(p[1] for p in plans),
+            *(p[2].shape[0] for p in plans),
+            *shape, *_widths(shape, dtype.itemsize))
 
 
 def _launch(x, K):
-    """One kernel launch on the current stream of x's device."""
+    """One kernel call (five launches) on the current stream of x's
+    device."""
     global launches
     n0, n1, n2 = x.shape
-    m2 = n2 // 2 + 1
     lib = build_library()
     fn = lib.spectral_conv_f32 if x.dtype == torch.float32 \
         else lib.spectral_conv_f64
     y = torch.empty_like(x)
-    buf_a = torch.empty((n0, n1, m2, 2), dtype=x.dtype, device=x.device)
-    buf_b = torch.empty_like(buf_a)
-    tw = [_twiddles(n, x.dtype, x.device) for n in (n0, n1, n2)]
+    buf = torch.empty((n0, n1, n2 // 2 + 1, 2), dtype=x.dtype,
+                      device=x.device)
+    args = (x.data_ptr(), K.data_ptr(), y.data_ptr(), buf.data_ptr(),
+            *_plan_args((n0, n1, n2), x.dtype, x.device),
+            torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), K.data_ptr(), y.data_ptr(), buf_a.data_ptr(),
-                 buf_b.data_ptr(), tw[0].data_ptr(), tw[1].data_ptr(),
-                 tw[2].data_ptr(), n0, n1, n2, stream)
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"spectral_conv: CUDA launch failed (error {err})")
     launches += 1
@@ -119,6 +138,7 @@ def _check(x, K):
             f"{tuple(K.shape)} {K.dtype} on {K.device}")
     if not K.is_contiguous():
         raise ValueError("spectral_conv: K must be contiguous")
+    _widths(x.shape, x.element_size())   # raises on an axis too long
 
 
 def spectral_conv(x, K):

@@ -1,12 +1,13 @@
-"""Radix-2 Stockham FFTs along one axis of f32 (re, im) planes: the CUDA
-kernel and its plain PyTorch versions.
+"""Stockham FFTs along one axis of f32 (re, im) planes: the CUDA kernel
+and its plain PyTorch versions.
 
 Replaces the five Pallas TPU kernels of ``professad_tpu/ops/vpufft.py``
 (``_fft_call``, ``_fft_real_call``, ``_ifft_real_out_call``,
 ``_sublane_conv_call``, ``_fft_mid_call``) with one templated CUDA kernel,
-``csrc/stockham.cu``: a tile of n rows x W columns is loaded once into
-shared memory, the log2(n) stages run there, and the tile is written once.
-It is bound by device memory; the source note says how.  It is built by
+``csrc/stockham.cu`` on the shared-memory core of ``csrc/fft_core.cuh``: a
+tile of n rows x W columns is loaded once into shared memory, the radix-4
+stages of ``ops/fft_plan.py`` run there, and the tile is written once.  It
+is bound by device memory; the source note says how.  It is built by
 ``ops/cuda_build.py`` at first use.
 
 The public functions keep the JAX module's names and layouts:
@@ -30,9 +31,9 @@ these have no gradient: a CUDA input that requires grad raises.
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
+from . import fft_plan
 from .cuda_build import build
 
 __all__ = ["fft_sublane", "ifft_sublane", "fft_sublane_real",
@@ -47,17 +48,14 @@ __all__ = ["fft_sublane", "ifft_sublane", "fft_sublane_real",
 launches = {"fft_sublane": 0, "fft_sublane_real": 0,
             "ifft_sublane_real_out": 0, "sublane_conv": 0, "fft_mid": 0}
 
-_SMEM_TARGET = 72 * 1024   # three blocks on an SM
-_SMEM_MAX = 232448         # the most one block may use on Hopper
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRIES = {
-    "stockham_fft_sublane": [_P] * 5 + [_I] * 4 + [_P],
-    "stockham_fft_sublane_real": [_P] * 4 + [_I] * 3 + [_P],
-    "stockham_ifft_sublane_real_out": [_P] * 4 + [_I] * 3 + [_P],
-    "stockham_sublane_conv": [_P] * 6 + [_I] * 3 + [_P],
-    "stockham_fft_mid": [_P] * 5 + [_I] * 5 + [_P],
+    "stockham_fft_sublane": [_P] * 6 + [_I] * 6 + [_P],
+    "stockham_fft_sublane_real": [_P] * 5 + [_I] * 5 + [_P],
+    "stockham_ifft_sublane_real_out": [_P] * 5 + [_I] * 5 + [_P],
+    "stockham_sublane_conv": [_P] * 7 + [_I] * 5 + [_P],
+    "stockham_fft_mid": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -74,27 +72,12 @@ def build_library():
 
 
 def tile_width(n, inner):
-    """Columns per block: the widest power of two up to 32 (and up to the
-    column count) whose two complex ping-pong planes, rows padded by one
-    float, fit in 72 KB; one column up to the 227 KB a block may hold.
-    Raises ``ValueError`` for an axis longer than that."""
-    cap = 1 << max(0, int(inner - 1).bit_length())
-    for w in (32, 16, 8, 4, 2, 1):
-        if w <= cap and 16 * n * (w + 1) <= _SMEM_TARGET:
-            return w
-    if 32 * n <= _SMEM_MAX:
-        return 1
-    longest = 1 << ((_SMEM_MAX // 32).bit_length() - 1)
-    raise ValueError(f"Stockham FFT: an axis of {n} does not fit in shared "
-                     f"memory (at most {longest})")
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles(n, device):
-    """(n/2, 2) f32 table of exp(-2 pi i j / n), computed in double."""
-    ang = -2.0 * np.pi * np.arange(n // 2) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)], axis=1)
-    return torch.as_tensor(tab, dtype=torch.float32, device=device)
+    """Columns per block: the widest power of two up to 32 (128-byte row
+    segments of each f32 plane) and up to the column count (rounded up)
+    whose tile fits the core, n W <= ``fft_plan.MAX_TILE``
+    (``fft_plan.tile_width``).  Raises ``ValueError`` for an axis longer
+    than ``fft_plan.MAX_AXIS``."""
+    return fft_plan.tile_width(n, inner, 32, 4)
 
 
 def _check(name, ts, ndim, axis):
@@ -134,8 +117,9 @@ def _launch(key, entry, ins, n_out, dims, inverse=None):
     x = ins[0]
     n = int(x.shape[0] if x.ndim == 2 else x.shape[1])
     outs = [torch.empty_like(x) for _ in range(n_out)]
+    plan, nst, tw = fft_plan.device_plan(n, torch.float32, x.device)
     args = [t.data_ptr() for t in ins + outs]
-    args += [_twiddles(n, x.device).data_ptr(), *dims,
+    args += [tw.data_ptr(), plan.data_ptr(), nst, tw.shape[0], *dims,
              tile_width(n, dims[-1])]
     if inverse is not None:
         args.append(int(inverse))

@@ -47,10 +47,12 @@ def _rel(a, b):
                                        (torch.float64, 1e-12)],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("shape", [(18, 18, 18), (9, 15, 7), (16, 8, 10),
-                                   (1, 4, 2)], ids=str)
+                                   (1, 4, 2), (31, 37, 45), (61, 18, 7),
+                                   (45, 45, 45), (128, 128, 128)], ids=str)
 def test_kernel_matches_reference(cuda, shape, dtype, tol):
     """Forward and backward against the plain version, with launches
-    counted once per kernel call."""
+    counted once per kernel call: composite, odd and prime axes (a prime
+    axis runs as one generic stage) and the main path's 128^3."""
     x, K = _case(shape, dtype, cuda)
     ct = torch.randn(shape, dtype=dtype, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(1))
