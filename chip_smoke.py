@@ -11,8 +11,9 @@ Phases (any failure exits non-zero):
      one nvcc per source, both started together;
   3. spectral_conv vs its plain version, f32 and f64, forward and
      backward, at 18^3, (9, 15, 7), the odd and prime shapes (31, 37, 45),
-     (61, 18, 7), (45, 45, 45), at 128^3 and 256^3; tolerances f32 rel 5e-6,
-     f64 rel 1e-12; per-call times at 128^3 of the kernel, its plain
+     (61, 18, 7), (45, 45, 45), (27, 27, 39) (the geometry phase's G2
+     grid), at 128^3 and 256^3; tolerances f32 rel 5e-6, f64 rel 1e-12;
+     per-call times at 128^3 and at (27, 27, 39) of the kernel, its plain
      version and the bare cuFFT composition irfftn(K rfftn(x)) (three
      calls: rfftn, the product, irfftn), each issued eagerly and replayed
      from a CUDA graph (device time without the host's dispatch);
@@ -35,11 +36,22 @@ Phases (any failure exits non-zero):
      at that ground state;
   7. the same system in f64: |E32 - E64| < 2e-5 eV/atom, and the per-term
      f32 energy bias of the fused sweep at the f64 ground state;
-  8. the PROFESS-4 golden energy (primitive fcc Al, 18^3, f64), atol 1e-4,
-     through the TPGD path and through the default optimize_density()
-     (host-loop L-BFGS, autograd gradient);
+  8. the PROFESS-4 golden energies (primitive fcc Al with WT and bcc Li
+     with Smargiassi-Madden, + PBE, 18^3, f64), atol 1e-4 eV, each through
+     the TPGD path and through the default optimize_density() (host-loop
+     L-BFGS, autograd gradient);
   9. forces against central finite differences of the re-optimized
-     energy (4-atom fcc Al, 16^3, f64, one ion displaced), atol 1e-4 eV/A.
+     energy (4-atom fcc Al, 16^3, f64, one ion displaced), atol 1e-4 eV/A;
+ 10. geometry relaxation, f64, spectral_conv's count reset just before it,
+     every density re-optimization on the analytic preconditioned TPGD
+     path (ntol 1e-9): G1, the main path's cell (128^3, WT + PBE) sheared
+     and with ion 0 displaced, relaxed with optimize_geometry (ions and
+     cell, ftol 0.02 eV/A, stol 0.002 eV/A^3, at most 80 steps) back to
+     fcc within the bounds of tests/test_geometry.py; G2, the reference's hcp-Mg tutorial
+     (WT-exp + PBE) over (volume per atom, c/a) with
+     optimize_parameterized_geometry at its own 2000 eV cutoff, (27, 27,
+     39), into the basin of tests/test_geometry.py.  Launches must be at
+     least 3 a density iteration.
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -125,14 +137,17 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+G2_SHAPE = (27, 27, 39)
 KERNEL_SHAPES = ((18, 18, 18), (9, 15, 7), (31, 37, 45), (61, 18, 7),
-                 (45, 45, 45), (128, 128, 128), (256, 256, 256))
+                 (45, 45, 45), G2_SHAPE, (128, 128, 128), (256, 256, 256))
 
 
-def phase_kernel(device, shapes=KERNEL_SHAPES, timed=(128, 128, 128)):
-    """Kernel vs plain version; returns the numbers at the timed shape per
-    dtype: (max abs error, rel error, kernel ms, plain ms, cuFFT ms) timed
-    eagerly, and the same three replayed from a CUDA graph."""
+def phase_kernel(device, shapes=KERNEL_SHAPES,
+                 timed=((128, 128, 128), G2_SHAPE)):
+    """Kernel vs plain version; returns the numbers at each timed shape
+    per (shape, dtype): (max abs error, rel error, kernel ms, plain ms,
+    cuFFT ms) timed eagerly, and the same three replayed from a CUDA
+    graph."""
     import torch
     from professad_tpu_torch.ops import spectral_conv as sc
 
@@ -161,7 +176,7 @@ def phase_kernel(device, shapes=KERNEL_SHAPES, timed=(128, 128, 128)):
                 f"bwd rel {eb:.3e} (tol {tol:g}) max abs {abs_err:.3e}")
             if not (ef < tol and eb < tol):
                 raise AssertionError(f"kernel disagrees at {shape} {dt}")
-            if shape == timed:
+            if shape in timed:
                 with torch.no_grad():
                     xd = xk.detach()
                     ms = cuda_time_ms(lambda: sc.spectral_conv(xd, K), 20)
@@ -182,7 +197,7 @@ def phase_kernel(device, shapes=KERNEL_SHAPES, timed=(128, 128, 128)):
                     f"kernel {graph[0]:.4f} ms, plain {graph[1]:.4f} ms, "
                     f"cuFFT {graph[2]:.4f} ms "
                     f"({graph[0] / graph[2]:.2f}x)")
-                out[dt] = (abs_err, ef, ms, pms, lms, graph)
+                out[shape, dt] = (abs_err, ef, ms, pms, lms, graph)
     return out
 
 
@@ -378,16 +393,19 @@ def phase_bfly(device, n=256, iters=20):
     return counts
 
 
-def build_bench_system(shape, dtype, device):
+FCC = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+
+
+def build_bench_system(shape, dtype, device, cell=4.050 * np.eye(3),
+                       frac=FCC):
     """The benchmark configuration: 4-atom cubic fcc Al, WT + PBE."""
     from professad_tpu_torch import System
     from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
                                             WangTeter, PerdewBurkeErnzerhof)
-    frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
-                     [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
     pot = os.path.join(ROOT, "tests", "potentials", "al.gga.recpot")
     terms = [IonIon, IonElectron, Hartree, WangTeter, PerdewBurkeErnzerhof]
-    return System(4.050 * np.eye(3), shape, [["Al", pot, frac]], terms,
+    return System(cell, shape, [["Al", pot, frac]], terms,
                   units="a", coord_type="fractional", device=device,
                   dtype=dtype)
 
@@ -488,6 +506,186 @@ def phase_fd_forces(device, eps=1e-4):
         raise AssertionError("forces disagree with finite differences")
 
 
+GEO_DEN_OPT = dict(n_method="TPGD", jit_loop=True, analytic=True,
+                   precondition=True, n_step_size=1.0, skip_iters=2,
+                   ntol=1e-9)
+SHEAR = np.array([[1.0, 0.02, 0.0], [0.0, 1.0, 0.03], [0.01, 0.0, 1.0]])
+
+
+def _instrument(s):
+    """Count the density re-optimizations (iterations, whether each
+    converged, the energy after each) and the geometry value-and-gradient
+    calls of one relaxation, with the host time spent in each (both end in
+    a read of a device scalar, so the time includes the device's)."""
+    stats = dict(runs=[], vg=0, t_vg=0.0, t_den=0.0)
+    run, make = s.optimize_density, s._geometry_value_and_grad
+
+    def den_opt(**kw):
+        t0 = time.perf_counter()
+        n_it, conv = run(**kw)
+        stats["t_den"] += time.perf_counter() - t0
+        stats["runs"].append((n_it, conv, s.energy("eV") / s.ion_count()))
+        return n_it, conv
+
+    def make_counted(*args):
+        vg = make(*args)
+
+        def counted(x):
+            t0 = time.perf_counter()
+            out = vg(x)
+            stats["t_vg"] += time.perf_counter() - t0
+            stats["vg"] += 1
+            return out
+        return counted
+    s.optimize_density = den_opt
+    s._geometry_value_and_grad = make_counted
+    return stats
+
+
+def _report(tag, stats, t, launches):
+    runs = stats["runs"]
+    n_den = sum(r[0] for r in runs)
+    unconv = sum(not r[1] for r in runs)
+    log(f"[geometry] {tag}: {len(runs) - 1} geometry steps, {n_den} density "
+        f"iterations in {len(runs)} re-optimizations ({unconv} not "
+        f"converged), {stats['vg']} value-and-gradient calls, {t:.3f} s "
+        f"(density re-optimizations {stats['t_den']:.3f} s, "
+        f"value-and-gradient {stats['t_vg']:.3f} s, the rest - forces, "
+        f"stress, host - {t - stats['t_den'] - stats['t_vg']:.3f} s), "
+        f"spectral_conv launches {launches} (bound >= 3 x {n_den}); E/atom "
+        f"{runs[0][2]:.6f} -> {runs[-1][2]:.6f} eV")
+    if launches < 3 * n_den:
+        raise AssertionError(f"{tag}: only {launches} spectral_conv "
+                             f"launches for {n_den} density iterations")
+    return n_den
+
+
+def _angles(box):
+    a, b, c = box
+    cos = [np.dot(u, v) / np.linalg.norm(u) / np.linalg.norm(v)
+           for u, v in ((b, c), (a, c), (a, b))]
+    return np.degrees(np.arccos(cos))
+
+
+def geometry_g1(device, sync, n=128):
+    """G1: the main path's cell sheared, ion 0 displaced, relaxed with
+    optimize_geometry back to fcc.  Returns its numbers and whether it
+    met every bound."""
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    frac = FCC.copy()
+    frac[0] += (0.02, 0.0, 0.01)
+    s = build_bench_system((n, n, n), torch.float64, device,
+                           cell=4.050 * SHEAR, frac=frac)
+    stats = _instrument(s)
+    sync()
+    before = sc.launches
+    t0 = time.perf_counter()
+    ok = s.optimize_geometry(ftol=0.02, stol=0.002,
+                             g_method="LBFGSlinesearch", g_maxiter=80,
+                             g_verbose=True, **GEO_DEN_OPT)
+    sync()
+    t = time.perf_counter() - t0
+    launches = sc.launches - before
+    n_den = _report(f"G1 fcc Al {n}^3 f64, ions + cell", stats, t,
+                    launches)
+    F = float(s.forces("eV/a").abs().max())
+    sigma = float(s.stress("eV/a3").abs().max())
+    box = s.lattice_vectors("a").cpu().numpy()
+    lengths = np.linalg.norm(box, axis=1)
+    angles = _angles(box)
+    rel = (s.fractional_ionic_coordinates().cpu().numpy()
+           - s.fractional_ionic_coordinates().cpu().numpy()[0])
+    off = np.abs((rel - FCC + 0.5) % 1.0 - 0.5).max()
+    E0, E1 = stats["runs"][0][2], stats["runs"][-1][2]
+    log(f"[geometry] G1: converged {ok}; max |F| {F:.3e} eV/A (< 0.02), "
+        f"max |sigma| {sigma:.3e} eV/A^3 (< 0.002); edges "
+        f"{[f'{v:.5f}' for v in lengths]} A (3.8-4.2), angles "
+        f"{[f'{v:.4f}' for v in angles]} deg (90 +- 1), ions off the fcc "
+        f"sites by {off:.2e} (< 5e-3); E/atom {E0:.6f} -> {E1:.6f} eV")
+    passed = bool(ok and F < 0.02 and sigma < 0.002 and E1 < E0
+                  and off < 5e-3
+                  and np.all((lengths > 3.8) & (lengths < 4.2))
+                  and np.all(np.abs(angles - 90.0) < 1.0))
+    return dict(steps=len(stats["runs"]) - 1, n_den=n_den, vg=stats["vg"],
+                t=t, launches=launches, passed=passed)
+
+
+def _hcp_geometry(p):
+    """(volume per atom [bohr^3], c/a) -> hcp (box [bohr], frac), the
+    parameterization of tests/test_geometry.py in torch ops."""
+    import torch
+    z = dict(dtype=p.dtype, device=p.device)
+    vol, c_over_a = torch.abs(p[0]), torch.abs(p[1])
+    a = ((2.0 * vol) / (np.sqrt(3.0) / 2.0 * c_over_a)) ** (1.0 / 3.0)
+    rows = torch.tensor([[1.0, 0.0, 0.0], [-0.5, np.sqrt(3.0) / 2.0, 0.0],
+                         [0.0, 0.0, 1.0]], **z)
+    scale = torch.stack([torch.ones((), **z), torch.ones((), **z), c_over_a])
+    frac = torch.tensor([[1 / 3, 2 / 3, 0.75], [2 / 3, 1 / 3, 0.25]], **z)
+    return a * rows * scale[:, None], frac
+
+
+def geometry_g2(device, sync):
+    """G2: the reference's hcp-Mg tutorial, WT-exp + PBE over (volume per
+    atom, c/a), at its own 2000 eV cutoff."""
+    import torch
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeterStyleFunctional,
+                                            PerdewBurkeErnzerhof)
+    from professad_tpu_torch.ops import spectral_conv as sc
+    A3 = System.A_per_b ** 3
+    wt_exp = WangTeterStyleFunctional(
+        (5.0 / 6.0, 5.0 / 6.0, torch.exp)).to(device)
+    p0 = torch.tensor([24.0 / A3, 1.5], dtype=torch.float64)
+    box0, frac0 = _hcp_geometry(p0)
+    shape = System.ecut2shape(2000.0, box0.numpy() * System.A_per_b)
+    if shape != G2_SHAPE:
+        raise AssertionError(f"G2 grid {shape}, expected {G2_SHAPE}")
+    pot = os.path.join(ROOT, "tests", "potentials", "mg.gga.recpot")
+    s = System(box0.numpy(), shape, [["Mg", pot, frac0.numpy()]],
+               [IonIon, IonElectron, Hartree, wt_exp.forward,
+                PerdewBurkeErnzerhof], units="b", coord_type="fractional",
+               device=device, dtype=torch.float64)
+    stats = _instrument(s)
+    sync()
+    before = sc.launches
+    t0 = time.perf_counter()
+    ok, p = s.optimize_parameterized_geometry(
+        p0, _hcp_geometry, ftol=1e-3, stol=1e-3, g_method="LBFGSlinesearch",
+        g_maxiter=40, g_verbose=True, **GEO_DEN_OPT)
+    sync()
+    t = time.perf_counter() - t0
+    launches = sc.launches - before
+    n_den = _report(f"G2 hcp Mg {shape} f64, (V, c/a)", stats, t, launches)
+    V, c_over_a = float(p[0].abs()) * A3, float(p[1].abs())
+    log(f"[geometry] G2: converged {ok}; V {V:.4f} A^3/atom (21.0-25.5; "
+        f"reference docs 23.151, diff {V - 23.151:+.4f}), c/a "
+        f"{c_over_a:.4f} (1.55-1.70; reference docs 1.630, diff "
+        f"{c_over_a - 1.630:+.4f})")
+    passed = bool(ok and 21.0 < V < 25.5 and 1.55 < c_over_a < 1.70)
+    return dict(steps=len(stats["runs"]) - 1, n_den=n_den, vg=stats["vg"],
+                t=t, launches=launches, V=V, c_over_a=c_over_a,
+                passed=passed)
+
+
+def phase_geometry(device, sync, n=128):
+    """Both relaxations; spectral_conv's count is reset just before and
+    read just after.  Returns the launches and the per-case numbers."""
+    from professad_tpu_torch.ops import spectral_conv as sc
+    t0 = time.perf_counter()
+    sc.launches = 0
+    g1 = geometry_g1(device, sync, n)
+    g2 = geometry_g2(device, sync)
+    launches = sc.launches
+    log(f"[geometry] phase: {time.perf_counter() - t0:.3f} s, "
+        f"spectral_conv launches {launches}")
+    failed = [tag for tag, g in (("G1", g1), ("G2", g2)) if not g["passed"]]
+    if failed:
+        raise AssertionError(f"relaxation outside its bounds: {failed}")
+    return launches, g1, g2
+
+
 def term_biases(s64):
     """Per-term f32 energy error of the fused sweep at the f64 ground
     state, in micro-eV per atom."""
@@ -527,32 +725,42 @@ def phase_f64(device, n, E32, sync):
     return E64, biases
 
 
+GOLDEN = (  # tests/test_match_profess4.py
+    ("primitive fcc Al, WT", "Al", "al.gga.recpot",
+     4.050 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]]),
+     np.zeros((1, 3)), "WangTeter", GOLDEN_EV),
+    ("bcc Li, SM", "Li", "li.gga.recpot", 3.48 * np.eye(3),
+     np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]]), "SmargiassiMadden",
+     -14.741886997024537),
+)
+
+
 def phase_golden(device):
     import torch
     from professad_tpu_torch import System
-    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
-                                            WangTeter, PerdewBurkeErnzerhof)
-    cell = 4.050 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5],
-                             [0.5, 0.0, 0.5]])
-    pot = os.path.join(ROOT, "tests", "potentials", "al.gga.recpot")
-    s = System(cell, (18, 18, 18), [["Al", pot, np.zeros((1, 3))]],
-               [IonIon, IonElectron, Hartree, WangTeter,
-                PerdewBurkeErnzerhof], units="a", coord_type="fractional",
-               device=device, dtype=torch.float64)
-    for path, run in (("TPGD path", optimize),
-                      ("default optimize_density()",
-                       lambda s: s.optimize_density(ntol=NTOL))):
-        s.initialize_density()
-        t0 = time.perf_counter()
-        n_it, conv = run(s)
-        torch.cuda.synchronize()
-        t = time.perf_counter() - t0
-        E = s.energy("eV")
-        log(f"[golden] primitive fcc Al 18^3 f64, {path}: E {E:.9f} eV vs "
-            f"PROFESS-4 {GOLDEN_EV} (diff {E - GOLDEN_EV:+.3e}, atol 1e-4), "
-            f"{n_it} steps, {t:.3f} s")
-        if not conv or abs(E - GOLDEN_EV) >= 1e-4:
-            raise AssertionError(f"golden energy mismatch ({path})")
+    from professad_tpu_torch import models
+    for name, species, recpot, cell, frac, kinetic, golden in GOLDEN:
+        pot = os.path.join(ROOT, "tests", "potentials", recpot)
+        s = System(cell, (18, 18, 18), [[species, pot, frac]],
+                   [models.IonIon, models.IonElectron, models.Hartree,
+                    getattr(models, kinetic), models.PerdewBurkeErnzerhof],
+                   units="a", coord_type="fractional", device=device,
+                   dtype=torch.float64)
+        for path, run in (("TPGD path", optimize),
+                          ("default optimize_density()",
+                           lambda s: s.optimize_density(ntol=NTOL))):
+            s.initialize_density()
+            t0 = time.perf_counter()
+            n_it, conv = run(s)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            E = s.energy("eV")
+            log(f"[golden] {name} 18^3 f64, {path}: E {E:.9f} eV vs "
+                f"PROFESS-4 {golden} (diff {E - golden:+.3e}, atol 1e-4), "
+                f"{n_it} steps, {t:.3f} s")
+            if not conv or abs(E - golden) >= 1e-4:
+                raise AssertionError(f"golden energy mismatch ({name}, "
+                                     f"{path})")
 
 
 def main():
@@ -586,8 +794,9 @@ def main():
     phase_f64(device, 128, res["E"], sync)
     phase_golden(device)
     phase_fd_forces(device)
+    geo_launches, _, _ = phase_geometry(device, sync)
 
-    abs_err, _, ms, pms, lms, graph = kern[torch.float32]
+    abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
     bms, by = bound(4 * (2 * n ** 3 + n * n * (n // 2 + 1)),
                     2 * 2.5 * n ** 3 * np.log2(n ** 3))
@@ -598,6 +807,7 @@ def main():
         "launches": res["launches"], "max_abs_err": abs_err,
         "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
         "library_ms": lms, "lib_ms": lms,
+        "geometry_launches": geo_launches,
         "library_call": "irfftn(K * rfftn(x)): three calls",
         "graph_ms": graph[0], "plain_graph_ms": graph[1],
         "library_graph_ms": graph[2]}]

@@ -1,10 +1,12 @@
-"""Carry state across from the JAX package.
+"""Carry state and functional parameters across from the JAX package.
 
 ``system_state_from_jax`` takes the dict that ``professad_tpu``'s
 ``System.state_dict()`` returns (numpy arrays and plain Python values) and
 returns it with the arrays as tensors on a chosen device and dtype, ready
-for this package's ``System.load_state_dict``.  No JAX import is needed:
-the input is numpy.
+for this package's ``System.load_state_dict``.
+``functional_params_from_jax`` does the same for a trainable functional's
+``params`` dict, for ``KineticFunctional.load_params``.  No JAX import is
+needed: the input is numpy (``np.asarray`` of a JAX array).
 """
 
 import numpy as np
@@ -12,7 +14,7 @@ import torch
 
 from .utils.device import resolve_device
 
-__all__ = ["system_state_from_jax"]
+__all__ = ["system_state_from_jax", "functional_params_from_jax"]
 
 _ARRAY_KEYS = ("box_vecs", "frac_ion_coords", "den", "v_ext")
 
@@ -33,3 +35,13 @@ def system_state_from_jax(state, device=None, dtype=torch.float64):
     out["shape"] = tuple(int(s) for s in state["shape"])
     out["ions"] = [tuple(ion) for ion in state["ions"]]
     return out
+
+
+def functional_params_from_jax(params):
+    """A JAX functional's ``params`` (name -> array) as float64 CPU
+    tensors, for ``KineticFunctional.load_params``, which copies them to
+    the module's device.  Callables such as a WT-style stabilizer ``f`` are
+    not parameters and are not carried: construct the port's functional
+    with the torch counterpart."""
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float64)
+            for k, v in params.items()}

@@ -1,14 +1,27 @@
-"""Energy functionals ported so far: the density-optimization term set
-(IonIon, IonElectron, Hartree, ThomasFermi, Weizsaecker, WangTeter, PBE)."""
+"""Energy functionals ported so far, under the JAX package's names."""
 
 from .interaction import IonIon, IonElectron, Hartree, hartree_potential
-from .kinetic_local import ThomasFermi, Weizsaecker
+from .xc import (lda_exchange, perdew_zunger_correlation,
+                 perdew_wang_correlation, chachiyo_correlation,
+                 PerdewZunger, PerdewWang, Chachiyo,
+                 pbe_exchange, pbe_correlation, PerdewBurkeErnzerhof)
+from .kinetic_local import (ThomasFermi, Weizsaecker, vWGTF1, vWGTF2,
+                            LuoKarasievTrickey, PauliGaussian)
 from .kinetic_nonlocal import (G_inv_lind_analytical, G_inv_lind,
-                               G_inv_lindhard, non_local_KEF, WangTeter)
-from .xc import pbe_exchange, pbe_correlation, PerdewBurkeErnzerhof
+                               G_inv_lindhard, non_local_KEF, WangTeter,
+                               Perrot, SmargiassiMadden, WangGovindCarter98,
+                               WangTeterStyleFunctional)
+from .base import KineticFunctional
 from . import ions  # noqa: F401
 
 __all__ = ["IonIon", "IonElectron", "Hartree", "hartree_potential",
-           "ThomasFermi", "Weizsaecker", "G_inv_lind_analytical",
-           "G_inv_lind", "G_inv_lindhard", "non_local_KEF", "WangTeter",
-           "pbe_exchange", "pbe_correlation", "PerdewBurkeErnzerhof"]
+           "lda_exchange", "perdew_zunger_correlation",
+           "perdew_wang_correlation", "chachiyo_correlation",
+           "PerdewZunger", "PerdewWang", "Chachiyo",
+           "pbe_exchange", "pbe_correlation", "PerdewBurkeErnzerhof",
+           "ThomasFermi", "Weizsaecker", "vWGTF1", "vWGTF2",
+           "LuoKarasievTrickey", "PauliGaussian",
+           "G_inv_lind_analytical", "G_inv_lind", "G_inv_lindhard",
+           "non_local_KEF", "WangTeter", "Perrot", "SmargiassiMadden",
+           "WangGovindCarter98", "WangTeterStyleFunctional",
+           "KineticFunctional"]

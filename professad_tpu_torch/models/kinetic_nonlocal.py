@@ -1,19 +1,26 @@
-"""Non-local kinetic energy functionals: the Lindhard response and
-Wang-Teter.
+"""Non-local kinetic energy functionals: the Lindhard response and the
+Wang-Teter family (WT, Perrot, SM, WGC98 and the trainable WT-style
+template).
 
 PyTorch port of the corresponding part of
-``professad_tpu/models/kinetic_nonlocal.py``.  Masked singular expressions
-keep the double-``where`` idiom so gradients stay NaN-free.
+``professad_tpu/models/kinetic_nonlocal.py`` (WGC99, Foley-Madden, KGAP,
+Huang-Carter, revHC, MGP and XWM are not ported yet: ROADMAP A7).  Masked
+singular expressions keep the double-``where`` idiom so gradients stay
+NaN-free.  The energy bodies convolve through ``torch.fft``, never the
+spectral-convolution kernel, so they are differentiable with respect to
+the cell.
 """
 
 import numpy as np
 import torch
 
 from ..ops.grid import wavevecs, volume, safe_sqrt, qmean, wmean, rfftn, irfftn
+from .base import KineticFunctional
 from .kinetic_local import ThomasFermi, Weizsaecker, TF_COEFF
 
 __all__ = ["G_inv_lind_analytical", "G_inv_lind", "G_inv_lindhard",
-           "non_local_KEF", "WangTeter"]
+           "non_local_KEF", "WangTeter", "Perrot", "SmargiassiMadden",
+           "WangGovindCarter98", "WangTeterStyleFunctional"]
 
 
 def G_inv_lind_analytical(eta):
@@ -69,3 +76,56 @@ def WangTeter(box_vecs, den):
     """WT: (alpha, beta) = (5/6, 5/6)."""
     return (Weizsaecker(box_vecs, den) + ThomasFermi(box_vecs, den)
             + non_local_KEF(box_vecs, den, 5.0 / 6.0, 5.0 / 6.0))
+
+
+def Perrot(box_vecs, den):
+    """Perrot: (alpha, beta) = (1, 1)."""
+    return (Weizsaecker(box_vecs, den) + ThomasFermi(box_vecs, den)
+            + non_local_KEF(box_vecs, den, 1.0, 1.0))
+
+
+def SmargiassiMadden(box_vecs, den):
+    """SM: (alpha, beta) = (1/2, 1/2)."""
+    return (Weizsaecker(box_vecs, den) + ThomasFermi(box_vecs, den)
+            + non_local_KEF(box_vecs, den, 0.5, 0.5))
+
+
+WGC98_ALPHA = float(5.0 + np.sqrt(5.0)) / 6.0
+WGC98_BETA = float(5.0 - np.sqrt(5.0)) / 6.0
+
+
+def WangGovindCarter98(box_vecs, den):
+    """WGC98: (alpha, beta) = ((5 + sqrt 5)/6, (5 - sqrt 5)/6)."""
+    return (Weizsaecker(box_vecs, den) + ThomasFermi(box_vecs, den)
+            + non_local_KEF(box_vecs, den, WGC98_ALPHA, WGC98_BETA))
+
+
+class WangTeterStyleFunctional(KineticFunctional):
+    """WT-style functional with tunable (alpha, beta) and a Pauli-positivity
+    stabilizer f with f(0) = 1: E = vW + TF f(T_NL / (f'(0) TF)).
+
+    ``init_args = (alpha, beta, f)``; ``f`` is a torch callable on 0-d
+    tensors (e.g. ``torch.exp``; default ``1 + x``).  A JAX functional's
+    stabilizer is a callable on JAX arrays and is not carried across: pass
+    its torch counterpart here and the parameters through
+    ``load_params(convert.functional_params_from_jax(...))``."""
+
+    def __init__(self, init_args=None):
+        super().__init__(init_args)
+        if init_args is None:
+            alpha, beta, f = 5.0 / 6.0, 5.0 / 6.0, (lambda x: 1.0 + x)
+        else:
+            alpha, beta, f = init_args
+        self._init_params(dict(alpha=alpha, beta=beta))
+        self.f = f
+        zero = torch.zeros((), dtype=torch.float64)
+        if float(f(zero)) != 1.0:
+            raise ValueError("WangTeterStyleFunctional requires f(0) = 1")
+        self.fprime0 = float(torch.func.grad(f)(zero))
+
+    def apply(self, params, box_vecs, den):
+        vW = Weizsaecker(box_vecs, den)
+        TF = ThomasFermi(box_vecs, den)
+        T_NL = non_local_KEF(box_vecs, den, params["alpha"],
+                             params["beta"]) / self.fprime0
+        return vW + TF * self.f(T_NL / TF)

@@ -1,8 +1,10 @@
-"""Exchange-correlation: PBE (with the PW92 correlation it builds on).
+"""Exchange-correlation: the LDA family (Dirac exchange with the PZ81, PW92
+or Chachiyo correlation) and PBE.
 
-PyTorch port of the PBE part of ``professad_tpu/models/xc.py``.  Singular
-denominators keep the same 1e-30 guards, so results and gradients match
-the JAX package to 1e-10.
+PyTorch port of ``professad_tpu/models/xc.py``.  Singular denominators
+keep the same 1e-30 guards, so results and gradients match the JAX package
+to 1e-10; ``log_hp`` / ``powr`` (TPU fixes) are ``torch.log`` /
+``torch.pow``.
 """
 
 import numpy as np
@@ -10,7 +12,32 @@ import torch
 
 from ..ops.grid import wavevecs, volume, grad_dot_grad, qmean
 
-__all__ = ["pbe_exchange", "pbe_correlation", "PerdewBurkeErnzerhof"]
+__all__ = ["lda_exchange", "perdew_zunger_correlation",
+           "perdew_wang_correlation", "chachiyo_correlation",
+           "PerdewZunger", "PerdewWang", "Chachiyo",
+           "pbe_exchange", "pbe_correlation", "PerdewBurkeErnzerhof"]
+
+
+def _rs(den):
+    return (3.0 / (4.0 * np.pi) / den) ** (1.0 / 3.0)
+
+
+def lda_exchange(box_vecs, den):
+    """Dirac LDA exchange."""
+    return (-(3.0 / 4.0) * (3.0 / np.pi) ** (1.0 / 3.0)
+            * qmean(den ** (4.0 / 3.0)) * volume(box_vecs))
+
+
+def perdew_zunger_correlation(box_vecs, den):
+    """PZ81 correlation."""
+    gamma, beta1, beta2 = -0.1423, 1.0529, 0.3334
+    A, B, C, D = 0.0311, -0.048, 0.002, -0.0116
+    rs = _rs(den)
+    log_rs = torch.log(rs)
+    eps_hi = A * log_rs + B + C * rs * log_rs + D * rs
+    eps_lo = gamma / (1.0 + beta1 * torch.sqrt(rs) + beta2 * rs)
+    eps_c = torch.where(rs < 1.0, eps_hi, eps_lo)
+    return qmean(eps_c * den) * volume(box_vecs)
 
 
 def _pw92_eps(rs):
@@ -19,6 +46,37 @@ def _pw92_eps(rs):
     srs = torch.sqrt(rs)
     zeta = 2.0 * A * (b1 * srs + b2 * rs + b3 * rs * srs + b4 * rs * rs)
     return -2.0 * A * (1.0 + alpha * rs) * torch.log(1.0 + 1.0 / zeta)
+
+
+def perdew_wang_correlation(box_vecs, den):
+    """PW92 correlation."""
+    return qmean(_pw92_eps(_rs(den)) * den) * volume(box_vecs)
+
+
+def chachiyo_correlation(box_vecs, den):
+    """Chachiyo 2016 correlation."""
+    a = float(np.log(2.0) - 1.0) / (2.0 * np.pi**2)
+    b = 20.4562557
+    rs = _rs(den)
+    eps_c = a * torch.log(1.0 + b / rs + b / rs**2)
+    return qmean(eps_c * den) * volume(box_vecs)
+
+
+def PerdewZunger(box_vecs, den):
+    """LDA XC: Dirac exchange + PZ81 correlation."""
+    return lda_exchange(box_vecs, den) + perdew_zunger_correlation(box_vecs,
+                                                                   den)
+
+
+def PerdewWang(box_vecs, den):
+    """LDA XC: Dirac exchange + PW92 correlation."""
+    return lda_exchange(box_vecs, den) + perdew_wang_correlation(box_vecs,
+                                                                 den)
+
+
+def Chachiyo(box_vecs, den):
+    """LDA XC: Dirac exchange + Chachiyo correlation."""
+    return lda_exchange(box_vecs, den) + chachiyo_correlation(box_vecs, den)
 
 
 def _pbe_exchange_density(den, gdg):
@@ -34,8 +92,7 @@ def _pbe_exchange_density(den, gdg):
 
 def _pbe_correlation_density(den, gdg):
     """PBE correlation energy density from den and |grad n|^2."""
-    rs = (3.0 / (4.0 * np.pi) / den) ** (1.0 / 3.0)
-    eps_c = _pw92_eps(rs)
+    eps_c = _pw92_eps(_rs(den))
     beta = 0.066725
     gamma = float(1.0 - np.log(2.0)) / np.pi**2
     A = beta / gamma / (torch.exp(-eps_c / gamma) - 1.0 + 1e-30)

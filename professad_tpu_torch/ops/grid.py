@@ -1,7 +1,8 @@
 """Reciprocal-space grid math: wavevectors, FFT derivatives, compensated means.
 
-PyTorch port of ``professad_tpu/ops/grid.py`` (the subset on the density
-optimization path).  Conventions kept from the JAX package:
+PyTorch port of ``professad_tpu/ops/grid.py`` (all but the TPU-only
+transforms and the multi-device pencil mode).  Conventions kept from the
+JAX package:
 
 * ``wavevecs`` is a differentiable function of ``box_vecs``; the integer
   frequency tables are built on the box's device and dtype each call.
@@ -20,7 +21,9 @@ import torch
 
 __all__ = [
     "inv3x3", "volume", "wavevecs", "imul", "qmean", "wmean", "safe_sqrt",
-    "rfftn", "irfftn", "spectral_convolution", "laplacian", "grad_dot_grad",
+    "rfftn", "irfftn", "spectral_convolution", "spectral_resample", "grad_i",
+    "laplacian", "grad_dot_grad", "reduced_gradient",
+    "reduced_gradient_squared", "reduced_laplacian",
 ]
 
 
@@ -176,6 +179,52 @@ def spectral_convolution(kern, field, shape):
     return irfftn(kern * rfftn(field), shape)
 
 
+def spectral_resample(field, new_shape):
+    """Band-limited (Fourier) resampling of a periodic real field onto
+    another grid over the same cell: every plane-wave component common to
+    both grids keeps its coefficient.  The source's Nyquist planes are
+    dropped on every axis whose size changes (a self-conjugate mode cannot
+    be split between the +/- frequencies of a finer grid); an unchanged
+    axis transfers everything.  Works up (zero-padding) and down
+    (truncation); the mean is kept exactly."""
+    old_shape = tuple(field.shape)
+    new_shape = tuple(int(n) for n in new_shape)
+    if len(old_shape) != 3 or len(new_shape) != 3:
+        raise ValueError("spectral_resample expects 3-D fields")
+    if old_shape == new_shape:
+        return field
+    F = rfftn(field)
+    m_new = new_shape[2] // 2 + 1
+    G = torch.zeros((new_shape[0], new_shape[1], m_new), dtype=F.dtype,
+                    device=F.device)
+
+    def pairs(n_old, n_new):
+        """(old slice, new slice) pairs carrying every transferred
+        frequency of one full axis."""
+        if n_old == n_new:
+            return [(slice(0, n_old), slice(0, n_old))]
+        h = (min(n_old, n_new) - 1) // 2  # highest |frequency| kept
+        out = [(slice(0, h + 1), slice(0, h + 1))]
+        if h:
+            out.append((slice(n_old - h, n_old), slice(n_new - h, n_new)))
+        return out
+
+    if old_shape[2] == new_shape[2]:
+        cols = slice(0, m_new)
+    else:
+        cols = slice(0, (min(old_shape[2], new_shape[2]) - 1) // 2 + 1)
+    for r_old, r_new in pairs(old_shape[0], new_shape[0]):
+        for c_old, c_new in pairs(old_shape[1], new_shape[1]):
+            G[r_new, c_new, cols] = F[r_old, c_old, cols]
+    scale = float(np.prod(new_shape)) / float(np.prod(old_shape))
+    return irfftn(G * scale, new_shape)
+
+
+def grad_i(ki, f):
+    """Spectral partial derivative df/dr_i."""
+    return irfftn(imul(ki, rfftn(f)), f.shape)
+
+
 def grad_dot_grad(kx, ky, kz, f):
     """|grad f|^2 via three spectral derivatives."""
     f_ft = rfftn(f)
@@ -188,3 +237,24 @@ def grad_dot_grad(kx, ky, kz, f):
 def laplacian(k2, f):
     """Spectral Laplacian."""
     return irfftn(-k2 * rfftn(f), f.shape)
+
+
+# ---------------------------- density descriptors ---------------------------
+
+def reduced_gradient(kx, ky, kz, den):
+    """s = |grad n| / (2 (3 pi^2)^{1/3} n^{4/3})."""
+    abs_grad = safe_sqrt(grad_dot_grad(kx, ky, kz, den))
+    return (0.5 * (3.0 * np.pi**2) ** (-1.0 / 3.0) * abs_grad
+            * den ** (-4.0 / 3.0))
+
+
+def reduced_gradient_squared(kx, ky, kz, den):
+    """s^2 = |grad n|^2 / (4 (3 pi^2)^{2/3} n^{8/3})."""
+    return (0.25 * (3.0 * np.pi**2) ** (-2.0 / 3.0)
+            * grad_dot_grad(kx, ky, kz, den) * den ** (-8.0 / 3.0))
+
+
+def reduced_laplacian(k2, den):
+    """q = lap n / (4 (3 pi^2)^{2/3} n^{5/3})."""
+    return (0.25 * (3.0 * np.pi**2) ** (-2.0 / 3.0)
+            * laplacian(k2, den) * den ** (-5.0 / 3.0))

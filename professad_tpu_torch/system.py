@@ -1,12 +1,16 @@
 """The System class: orbital-free DFT with periodic boundaries (PyTorch).
 
-Port of the ``professad_tpu.system.System`` subset for the density
-optimization and its first derivatives: setup (cell, ions, recpot
-interpolation, v_ext), the energy assembly, the chi gradient (fused
-analytic, or autograd of the energy), the exact uniform-density
-preconditioner, the L-BFGS and TPGD density optimizers with the
-``dE`` / ``dEdchi`` / ``euler`` stopping rules, the convergence
-diagnostics, and the Hellmann-Feynman forces and the stress by autograd.
+Port of the single-device ``professad_tpu.system.System`` up to its first
+derivatives: setup (cell, ions, recpot interpolation, v_ext), the setters
+and getters, the energy assembly, the chi gradient (fused analytic,
+autograd of the energy, or a user-supplied potential), the exact
+uniform-density preconditioner, the L-BFGS and TPGD density optimizers
+with the ``dE`` / ``dEdchi`` / ``euler`` stopping rules, the convergence
+diagnostics, the Hellmann-Feynman forces and the stress by autograd, the
+geometry relaxations (``optimize_geometry``,
+``optimize_parameterized_geometry``) with their host optimizers, and
+checkpoints.  Not ported yet: implicit second derivatives (ROADMAP A9),
+EOS utilities (A10), PME (A8), multi-device runs (A11).
 
 Precision: the state (cell, ion coordinates, density, v_ext) is held in
 float64 on ``device`` (``None`` means ``cuda:0``; pass ``device="cpu"`` for
@@ -19,12 +23,13 @@ and the density is stored back in float64.
 """
 
 import functools
+import pickle
 
 import numpy as np
 import torch
 
 from .ops.grid import (wavevecs, volume, safe_sqrt, inv3x3, rfftn, wmean,
-                       spectral_convolution)
+                       spectral_convolution, spectral_resample)
 from .ops.interp import interpolate
 from .ops import solvers
 from .ops.autodiff import get_functional_derivative
@@ -91,7 +96,7 @@ class System:
         return tuple(int(s) for s in shape)
 
     def _process_ions(self, ions, coord_type, units):
-        N_elec, ion_list, coords = 0, [], []
+        N_elec, ion_list, coords, name = 0, [], [], ""
         self._recpot_tables = []
         for species in ions:
             ks, pot_ft, charge = ion_utils.read_recpot(species[1])
@@ -101,6 +106,8 @@ class System:
             ion_list.append((species[0], species[1], count, charge))
             coords.append(c)
             N_elec += count * charge
+            name += species[0] + str(count)
+        self._name = name
         ion_coords = np.concatenate(coords, axis=0)
         self._N_ions = int(ion_coords.shape[0])
         self._N_elec = N_elec
@@ -121,10 +128,7 @@ class System:
             frac = ion_coords
         else:
             raise ValueError("coord_type must be 'cartesian' or 'fractional'")
-        # double-wrap: tiny negatives map -1e-16 -> 1.0 -> 0.0
-        frac = frac - torch.floor(frac)
-        frac = frac - torch.floor(frac)
-        self._frac_ion_coords = frac
+        self._frac_ion_coords = _wrap(frac)
         if not initialization:
             self._update_ionic_potential()
             self._ene = self._compute_energy()
@@ -205,9 +209,66 @@ class System:
         return torch.full(self._shape, self._N_elec / self.volume("b3"),
                           dtype=_F64, device=self._device)
 
+    def set_potential(self, pot):
+        """Set an explicit external potential (Ha, on the system's grid)."""
+        if tuple(pot.shape) != self._shape:
+            raise ValueError(
+                f"Shape of new potential {tuple(pot.shape)} must match the "
+                f"system's {self._shape}.")
+        self._v_ext = self._t(pot)
+        self._ene = self._compute_energy()
+
+    def set_density(self, den, resample=False):
+        """Set the electron density.  ``resample=True`` also takes a
+        density on another grid over the same cell: it is resampled in
+        chi = sqrt(n) (``grid.spectral_resample``, so the result stays
+        nonnegative) and renormalised to the electron count, the warm
+        start of a finer grid from a converged coarse one."""
+        den = self._t(den)
+        if tuple(den.shape) != self._shape:
+            if not resample:
+                raise ValueError(
+                    f"Shape of new density {tuple(den.shape)} must match "
+                    f"the system's {self._shape} (or pass resample=True).")
+            chi = spectral_resample(safe_sqrt(den), self._shape)
+            den = chi * chi
+            den = den * (self._N_elec / (wmean(den) * self.volume("b3")))
+        self._den = den
+        self._ene = self._compute_energy()
+
+    def set_electron_number(self, N):
+        self._N_elec = N
+
+    def detach(self):
+        """Drop any autograd graph from the stored state."""
+        self._box_vecs = self._box_vecs.detach()
+        self._frac_ion_coords = self._frac_ion_coords.detach()
+        self._den = self._den.detach()
+        self._v_ext = self._v_ext.detach()
+        if torch.is_tensor(self._ene):
+            self._ene = self._ene.detach()
+
+    def set_Rc(self, Rc=None):
+        """Set the ion-ion real-space cutoff (``None``: the heuristic)."""
+        self._Rc = Rc
+        self._shifts_key = None
+
+    def set_mesh(self, mesh):
+        """Multi-device runs are not ported; ``None`` (no mesh) is the only
+        setting."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device runs are not ported yet: ROADMAP A11")
+
     # ------------------------------------------------------------------
     # getters
     # ------------------------------------------------------------------
+
+    def device(self):
+        return self._device
+
+    def name(self):
+        return self._name
 
     def ion_count(self):
         return self._N_ions
@@ -215,9 +276,18 @@ class System:
     def electron_count(self):
         return self._N_elec
 
+    def lattice_vectors(self, units="a"):
+        return self._unit_factor(units) * self._box_vecs
+
+    def ions(self):
+        return self._ions
+
     def cartesian_ionic_coordinates(self, units="a"):
         return (self._frac_ion_coords @ self._box_vecs) \
             * self._unit_factor(units)
+
+    def fractional_ionic_coordinates(self):
+        return self._frac_ion_coords
 
     def ionic_potential(self, units="Ha"):
         if units == "Ha":
@@ -283,6 +353,22 @@ class System:
             (g,) = torch.autograd.grad(E, x)
         return E.detach(), g
 
+    @torch.no_grad()
+    def _chi_value_and_grad_potentials(self, chi, box_vecs, v_ext, N_elec,
+                                       potentials):
+        """(E, dE/dchi) with dE/dn from a user-supplied
+        ``potentials(box_vecs, den)``, chained through the chi
+        parameterisation as in the JAX package."""
+        x = chi.reshape(self._shape)
+        vol = volume(box_vecs)
+        N_tilde = wmean(x * x) * vol
+        den = (N_elec / N_tilde) * x * x
+        E = self._density_terms_energy(box_vecs, den, v_ext)
+        dEdn = potentials(box_vecs, den)
+        mu = wmean(dEdn * den) * vol / N_elec
+        dEdchi = (N_elec / N_tilde) * 2.0 * x * (dEdn - mu)
+        return E, (dEdchi * (vol / den.numel())).reshape(chi.shape)
+
     def _dEdn(self, box_vecs, den, v_ext):
         """delta E / delta n of the density terms (per unit volume)."""
         return get_functional_derivative(
@@ -342,7 +428,8 @@ class System:
         # positive floor: k=0 carries no Hartree and is projected out by the
         # normalisation anyway; guards isolated non-SPD modes
         floor = 1e-8 * torch.max(F)
-        return 1.0 / torch.maximum(F, floor)
+        # a constant of the solver: no graph to a trainable term's params
+        return (1.0 / torch.maximum(F, floor)).detach()
 
     def _precond_kernel(self, box_vecs, N_elec):
         """Exact preconditioner kernel M(k), full-grid HVP.  Grids above
@@ -399,14 +486,20 @@ class System:
             self._Eion_cache = float(E)
         return E
 
+    @torch.no_grad()
     def _compute_energy(self, for_den_opt=False):
         """Total energy of the stored state: density terms, plus ion-ion
-        unless ``for_den_opt``."""
+        unless ``for_den_opt``.  No graph: a trainable term's parameters
+        would otherwise tie one to the stored energy."""
         E = self._density_terms_energy(self._box_vecs, self._den, self._v_ext)
         if self._has_ion_ion() and not for_den_opt:
-            cart = self._frac_ion_coords @ self._box_vecs
-            E = E + self._ion_ion_interaction(self._box_vecs, cart)
+            E = E + self._ion_ion_energy()
         return E
+
+    def _ion_ion_energy(self):
+        """Ion-ion energy of the stored cell and ions (sets the cache)."""
+        cart = self._frac_ion_coords @ self._box_vecs
+        return self._ion_ion_interaction(self._box_vecs, cart)
 
     # ------------------------------------------------------------------
     # density optimization
@@ -439,11 +532,13 @@ class System:
         float32 L-BFGS is not expected to converge (its curvature pairs
         turn into rounding noise near the minimum); TPGD is the f32 path.
 
-        ``potentials=`` and ``mesh=`` are not ported and raise.  Returns
+        ``potentials(box_vecs, den) -> dE/dn`` (host loop only) drives the
+        L-BFGS or TPGD step with a user-supplied potential instead of the
+        autograd gradient; the energy is still the terms' own, and no
+        preconditioner is applied, as in the JAX package.
+
+        ``mesh=`` (multi-device runs) is not ported and raises.  Returns
         (outer steps, converged)."""
-        if potentials is not None:
-            raise NotImplementedError(
-                "user-supplied potentials are not ported yet: ROADMAP A6")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device runs are not ported yet: ROADMAP A11")
@@ -451,13 +546,15 @@ class System:
             raise ValueError("n_method must be 'LBFGS' or 'TPGD'")
         if conv_target not in ("dE", "dEdchi", "euler"):
             raise ValueError("conv_target must be 'dE', 'dEdchi' or 'euler'")
+        if jit_loop and potentials is not None:
+            raise ValueError("jit_loop supports autodiff gradients only")
         if jit_loop and analytic:
             from .models.potentials import supported_terms
             if not supported_terms(self._terms):
                 raise NotImplementedError(
                     "analytic=True needs a fused analytic potential for "
-                    "every term; the other functionals are not ported yet: "
-                    "ROADMAP A7")
+                    "every term; YukawaGGA, WGC99, Foley-Madden, HC, revHC, "
+                    "KGAP, XWM and MGP are not ported yet: ROADMAP A7")
 
         if from_uniform:
             self._den = self._uniform_density()
@@ -474,11 +571,17 @@ class System:
         v_ext = self._v_ext.to(dt)
         N_elec = float(self._N_elec)
         chi0 = safe_sqrt(self._den).to(dt)
-        vg_auto = lambda x: self._chi_value_and_grad(x, box, v_ext, N_elec)
-        # the host loop's TPGD step takes no preconditioner
+        if potentials is None:
+            vg_auto = lambda x: self._chi_value_and_grad(x, box, v_ext,
+                                                         N_elec)
+        else:
+            vg_auto = lambda x: self._chi_value_and_grad_potentials(
+                x, box, v_ext, N_elec, potentials)
+        # the host loop's TPGD step and the potentials path take no
+        # preconditioner
         aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec))
-               if precondition and (jit_loop or n_method == "LBFGS")
-               else None)
+               if precondition and potentials is None
+               and (jit_loop or n_method == "LBFGS") else None)
 
         if jit_loop:
             vg = vg_auto if not analytic else (
@@ -499,7 +602,10 @@ class System:
         self._set_den_from_chi(state.x)
         E = state.f.to(_F64)
         if self._has_ion_ion():
-            # set by the last _compute_energy of the current cell and ions
+            # cached by the last energy of the current cell and ions
+            if self._Eion_cache is None:
+                with torch.no_grad():
+                    self._ion_ion_energy()
             E = E + self._Eion_cache
         self._ene = E
         if n_verbose:
@@ -709,3 +815,451 @@ class System:
         self._shifts_key = None
         self._Eion_cache = None
         self._ene = self._compute_energy()
+
+    def save(self, path):
+        """Pickle the state snapshot with numpy arrays: the JAX package's
+        ``save`` format, so either package loads the other's file."""
+        state = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+                 for k, v in self.state_dict().items()}
+        with open(path, "wb") as fh:
+            pickle.dump(state, fh)
+
+    def load(self, path):
+        """Restore a snapshot written by ``save`` of either package (same
+        grid shape and species)."""
+        with open(path, "rb") as fh:
+            self.load_state_dict(pickle.load(fh))
+
+    # ------------------------------------------------------------------
+    # geometry optimization
+    # ------------------------------------------------------------------
+
+    def optimize_geometry(self, ftol=0.02, stol=0.002, g_conv_cond_count=3,
+                          g_method="LBFGSlinesearch", g_step_size=0.1,
+                          g_maxiter=1000, g_verbose=False, **den_opt_kwargs):
+        """Relax the ionic positions and/or the lattice vectors.
+
+        ``ftol`` (max |F| in eV/A) and ``stol`` (max |sigma| in eV/A^3)
+        must both hold for ``g_conv_cond_count`` consecutive steps after
+        the third; ``ftol=None`` varies the lattice only, ``stol=None`` the
+        positions only.  Each step is one step of the host optimizer
+        (``g_method``: 'LBFGSlinesearch', 'LBFGS', 'TPGD' or 'RPROP') on
+        the energy at the frozen chi = sqrt(n) of the last density
+        optimization (value and gradient by autograd, f64, on the system's
+        device), then a density re-optimization with ``den_opt_kwargs``
+        (defaults: host-loop L-BFGS, ``ntol=1e-10``).  Returns whether it
+        converged.  Multi-device runs are not ported (ROADMAP A11)."""
+        if den_opt_kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "multi-device runs are not ported yet: ROADMAP A11")
+        if ftol is None and stol is None:
+            raise ValueError("At least one of stol/ftol must not be None")
+        vary_ions = ftol is not None
+        vary_cell = stol is not None
+        n_frac = 3 * self._N_ions
+
+        def pack():
+            parts = []
+            if vary_ions:
+                parts.append(self._frac_ion_coords.reshape(-1))
+            if vary_cell:
+                parts.append(self._box_vecs.reshape(-1))
+            return torch.cat(parts).cpu().numpy()
+
+        def geometry(x):
+            frac, box = self._frac_ion_coords, self._box_vecs
+            if vary_ions:
+                frac = x[:n_frac].reshape(self._N_ions, 3)
+            if vary_cell:
+                i = n_frac if vary_ions else 0
+                box = x[i:i + 9].reshape(3, 3)
+            return frac, box
+
+        def apply(x):
+            frac, box = geometry(self._t(x))
+            if vary_ions:
+                # the ion-ion image table assumes home-cell ions
+                self._frac_ion_coords = _wrap(frac)
+            if vary_cell:
+                self._box_vecs = box
+                self._shifts_key = None
+
+        return self._relax(geometry, apply, pack(), ftol, stol,
+                           g_conv_cond_count, g_method, g_step_size,
+                           g_maxiter, g_verbose, den_opt_kwargs)[0]
+
+    def optimize_parameterized_geometry(self, params, parameterized_geometry,
+                                        ftol=0.02, stol=0.002,
+                                        g_conv_cond_count=3,
+                                        g_method="LBFGSlinesearch",
+                                        g_step_size=0.1, g_maxiter=1000,
+                                        g_verbose=False, param_string=None,
+                                        **den_opt_kwargs):
+        """Geometry optimization over a user parameterization
+        ``parameterized_geometry(p) -> (box_vecs [bohr], frac)``, written
+        with torch ops (it is differentiated by autograd).  The stopping
+        rule and ``den_opt_kwargs`` are those of ``optimize_geometry``;
+        ``param_string(p) -> str`` extends each verbose line.  Returns
+        (converged, optimized params as a float64 tensor on the system's
+        device)."""
+        if den_opt_kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "multi-device runs are not ported yet: ROADMAP A11")
+        if ftol is None and stol is None:
+            raise ValueError("At least one of stol/ftol must not be None")
+
+        def geometry(p):
+            box, frac = parameterized_geometry(p)
+            return self._t(frac), self._t(box)
+
+        def apply(p):
+            with torch.no_grad():
+                frac, box = geometry(self._t(p))
+            self._box_vecs = box
+            self._frac_ion_coords = _wrap(frac)
+            self._shifts_key = None
+
+        p0 = torch.as_tensor(params, dtype=_F64).cpu().numpy().reshape(-1)
+        apply(p0)
+        self._Eion_cache = None
+        self._update_ionic_potential()
+        ok, p = self._relax(geometry, apply, p0, ftol, stol,
+                            g_conv_cond_count, g_method, g_step_size,
+                            g_maxiter, g_verbose, den_opt_kwargs,
+                            param_string)
+        return ok, self._t(p)
+
+    def _geometry_value_and_grad(self, geometry, held):
+        """vg(x) -> (E, dE/dx) of the energy at the frozen chi
+        ``held["chi"]`` for the geometry ``geometry(x) -> (frac, box)``
+        (the loop sets chi before each step): x goes to the device as an
+        f64 tensor, autograd builds and frees its graph inside the call,
+        and (E, g) come back as a float and a numpy array.
+
+        The ion-ion cutoff, damping and image table are those of the cell
+        at the first call, for the whole relaxation: the JAX package reads
+        them from the concrete cell when it traces its jitted objective,
+        once per relaxation, and the ion-ion sum depends on them."""
+        frozen = []
+
+        def energy(x):
+            frac, box = geometry(x)
+            chi = held["chi"]
+            cart = frac @ box
+            v_ext = (self._potential_from_ions(box, cart)
+                     if self._needs_vext() else self._v_ext)
+            N_tilde = wmean(chi * chi) * volume(box)
+            den = (self._N_elec / N_tilde) * chi * chi
+            E = self._density_terms_energy(box, den, v_ext)
+            if self._has_ion_ion():
+                if not frozen:
+                    Rc, Rd = self._Rc_Rd()
+                    frozen.append((Rc, Rd, self._get_shifts(Rc)))
+                Rc, Rd, shifts = frozen[0]
+                E = E + ion_utils.ion_interaction_sum(
+                    box, cart, self._charges, Rc, Rd, shifts=shifts)
+            return E
+
+        def vg(x):
+            with torch.enable_grad():
+                xt = self._t(x).requires_grad_(True)
+                E = energy(xt)
+                (g,) = torch.autograd.grad(E, xt)
+            return float(E.detach()), g.cpu().numpy()
+
+        return vg
+
+    def _relax(self, geometry, apply, x, ftol, stol, conv_count, g_method,
+               lr, maxiter, verbose, den_opt_kwargs, param_string=None):
+        """The geometry loop shared by both entry points: host optimizer
+        step on the frozen-density energy, ``apply(x)`` to the state, cache
+        refresh, density re-optimization, stopping rule.  Returns
+        (converged, x)."""
+        den_opt = {"ntol": 1e-10, "n_conv_cond_count": 3, "n_method": "LBFGS",
+                   "n_step_size": 0.1, "n_maxiter": 1000, "conv_target": "dE",
+                   "n_verbose": False, "from_uniform": False}
+        den_opt.update(den_opt_kwargs)
+        if g_method in ("LBFGS", "LBFGSlinesearch"):
+            opt = _HostLBFGS(lr=lr, history=8, max_iter=6,
+                             line_search=g_method == "LBFGSlinesearch")
+        elif g_method == "TPGD":
+            opt = _HostTPGD(lr=lr)
+        elif g_method == "RPROP":
+            opt = _HostRprop(lr=lr)
+        else:
+            raise ValueError("g_method must be 'LBFGSlinesearch', 'LBFGS', "
+                             "'RPROP' or 'TPGD'")
+
+        def max_abs(t):
+            return float(torch.max(torch.abs(t)))
+
+        self.optimize_density(**den_opt)
+        E_prev = self.energy("eV") / self.ion_count()
+        if verbose:
+            print("{:^7} {:^20} {:^20} {:^20} {:^20}".format(
+                "Iter", "E [eV per atom]", "dE [eV per atom]",
+                "Max Force [eV/A]", "Max Stress [eV/A^3]"), flush=True)
+        held = {}
+        vg = self._geometry_value_and_grad(geometry, held)
+        conv_counter = 0
+        success_iter = None
+        for it in range(1, round(maxiter) + 1):
+            held["chi"] = safe_sqrt(self._den)
+            x = opt.step(vg, x)
+            apply(x)
+            # the geometry changed: the cached ion-ion energy is stale
+            self._Eion_cache = None
+            self._update_ionic_potential()
+            self.optimize_density(**den_opt)
+            E_new = self.energy("eV") / self.ion_count()
+            max_force = max_abs(self.forces("eV/a"))
+            max_stress = max_abs(self.stress("eV/a3"))
+            if verbose:
+                line = "{:^7} {:^20.6f} {:^20.6g} {:^20.6g} {:^20.6g}".format(
+                    it, E_new, E_new - E_prev, max_force, max_stress)
+                if param_string is not None:
+                    line += param_string(self._t(x))
+                print(line, flush=True)
+            E_prev = E_new
+            if it > 3:
+                if ftol is None:
+                    ok = max_stress < stol
+                elif stol is None:
+                    ok = max_force < ftol
+                else:
+                    ok = max_force < ftol and max_stress < stol
+                conv_counter = conv_counter + 1 if ok else 0
+            if conv_counter == conv_count:
+                success_iter = it
+                break
+        if verbose:
+            word = (f"successfully converged in {success_iter} step(s)"
+                    if success_iter is not None
+                    else f"failed to converge in {maxiter} step(s)")
+            print(f"Geometry optimization {word}\n", flush=True)
+        return success_iter is not None, x
+
+
+def _wrap(frac):
+    """Fractional coordinates into [0, 1), wrapped twice: a tiny negative
+    maps -1e-16 -> 1.0 -> 0.0."""
+    frac = frac - torch.floor(frac)
+    return frac - torch.floor(frac)
+
+
+# ----------------------------------------------------------------------
+# host-side optimizers for the few geometry degrees of freedom (<= 3N+9),
+# in float64 numpy; the heavy work is inside the value-and-gradient call
+# ----------------------------------------------------------------------
+
+def _cubic_minimizer(a, fa, ga, b, fb, gb):
+    """Minimizer of the cubic interpolating (a, fa, ga) and (b, fb, gb),
+    clipped to the [a, b] interval (Nocedal & Wright eq. 3.59)."""
+    lo, hi = (a, b) if a <= b else (b, a)
+    d1 = ga + gb - 3.0 * (fa - fb) / (a - b)
+    disc = d1 * d1 - ga * gb
+    if disc < 0.0 or a == b:
+        return 0.5 * (lo + hi)
+    d2 = np.sqrt(disc) * np.sign(b - a)
+    t = b - (b - a) * ((gb + d2 - d1) / (gb - ga + 2.0 * d2))
+    if not np.isfinite(t):
+        return 0.5 * (lo + hi)
+    return float(min(max(t, lo), hi))
+
+
+class _HostLBFGS:
+    """L-BFGS (history 8) with a strong-Wolfe cubic-interpolation line
+    search (Nocedal & Wright, alg. 3.5/3.6) and a trust-region cap on
+    |t d|_inf, because the frozen-density geometry objective is unbounded
+    below under cell collapse."""
+
+    def __init__(self, lr=0.1, history=8, max_iter=6, line_search=True,
+                 max_step=0.2, c1=1e-4, c2=0.9):
+        self.lr = lr
+        self.history = history
+        self.max_iter = max_iter
+        self.line_search = line_search
+        self.max_step = max_step  # trust region: cap |t d|_inf per iteration
+        self.c1 = c1              # Armijo (sufficient-decrease) constant
+        self.c2 = c2              # curvature (strong-Wolfe) constant
+        self.S, self.Y = [], []
+        self.n_iter = 0
+        self._prev = None  # (x, g)
+
+    def _direction(self, g):
+        if not self.S:
+            return -g
+        q = -g.copy()
+        al = []
+        rho = [1.0 / np.dot(y, s) for s, y in zip(self.S, self.Y)]
+        for i in range(len(self.S) - 1, -1, -1):
+            a = rho[i] * np.dot(self.S[i], q)
+            al.append(a)
+            q -= a * self.Y[i]
+        al = al[::-1]
+        ys = np.dot(self.Y[-1], self.S[-1])
+        H0 = ys / np.dot(self.Y[-1], self.Y[-1])
+        r = H0 * q
+        for i in range(len(self.S)):
+            be = rho[i] * np.dot(self.Y[i], r)
+            r += (al[i] - be) * self.S[i]
+        return r
+
+    def step(self, vg, x0):
+        x = np.asarray(x0, dtype=np.float64)
+        f, g = vg(x)
+        f, g = float(f), np.asarray(g, dtype=np.float64)
+        for _ in range(self.max_iter):
+            if self._prev is not None:
+                xp, gp = self._prev
+                s = x - xp
+                y = g - gp
+                ys = np.dot(y, s)
+                # curvature filter, plus a floor on the step's scale:
+                # machine-epsilon steps give noise-dominated y that would
+                # poison every later two-loop direction
+                s_ok = np.max(np.abs(s)) > 1e-12 * (1.0 + np.max(np.abs(x)))
+                if ys > 1e-10 * np.dot(s, s) and s_ok:
+                    self.S.append(s)
+                    self.Y.append(y)
+                    if len(self.S) > self.history:
+                        self.S.pop(0)
+                        self.Y.pop(0)
+            d = self._direction(g)
+            if np.max(np.abs(d)) <= 1e-13 * (1.0 + np.max(np.abs(x))):
+                break  # converged to machine precision
+            gtd = np.dot(g, d)
+            if gtd > 0:  # not a descent direction: reset
+                d, gtd = -g, -np.dot(g, g)
+            if self.n_iter == 0:
+                t = min(1.0, 1.0 / max(np.sum(np.abs(g)), 1e-300)) * self.lr
+            elif self.line_search and self.S:
+                # with curvature memory the direction is quasi-Newton:
+                # start the search at the unit step
+                t = 1.0
+            else:
+                t = self.lr
+            d_inf = np.max(np.abs(d))
+            if t * d_inf > self.max_step:
+                t = self.max_step / d_inf
+            self._prev = (x.copy(), g.copy())
+            if self.line_search:
+                t_cap = self.max_step / d_inf
+                t, f, g = self._wolfe_cubic(vg, x, f, g, d, min(t, t_cap),
+                                            t_cap)
+                x = x + t * d
+            else:
+                x = x + t * d
+                f, g = vg(x)
+                f, g = float(f), np.asarray(g, dtype=np.float64)
+            self.n_iter += 1
+        return x
+
+    def _wolfe_cubic(self, vg, x, f0, g0, d, t, t_cap):
+        """Strong-Wolfe line search with cubic interpolation: bracketing,
+        then zoom.  Returns (t, f(x + t d), grad(x + t d))."""
+        c1, c2 = self.c1, self.c2
+        gtd0 = float(np.dot(g0, d))
+
+        def ev(t):
+            f_t, g_t = vg(x + t * d)
+            return float(f_t), np.asarray(g_t, dtype=np.float64)
+
+        t_prev, f_prev, g_prev, gtd_prev = 0.0, f0, g0, gtd0
+        bracket = None
+        for i in range(10):
+            f_t, g_t = ev(t)
+            gtd_t = float(np.dot(g_t, d))
+            if (not np.isfinite(f_t)) or f_t > f0 + c1 * t * gtd0 or \
+                    (i > 0 and f_t >= f_prev):
+                bracket = (t_prev, f_prev, g_prev, gtd_prev, t, f_t, g_t,
+                           gtd_t)
+                break
+            if abs(gtd_t) <= -c2 * gtd0:
+                return t, f_t, g_t          # strong Wolfe satisfied
+            if gtd_t >= 0.0:
+                bracket = (t, f_t, g_t, gtd_t, t_prev, f_prev, g_prev,
+                           gtd_prev)
+                break
+            if t >= t_cap:
+                return t, f_t, g_t          # trust-region boundary
+            t_prev, f_prev, g_prev, gtd_prev = t, f_t, g_t, gtd_t
+            t = min(2.0 * t, t_cap)
+        if bracket is None:
+            return t_prev, f_prev, g_prev
+
+        # zoom: lo satisfies Armijo with the lower f; hi is the other end
+        t_lo, f_lo, g_lo, gtd_lo, t_hi, f_hi, g_hi, gtd_hi = bracket
+        for _ in range(10):
+            t = _cubic_minimizer(t_lo, f_lo, gtd_lo, t_hi, f_hi, gtd_hi)
+            span = abs(t_hi - t_lo)
+            # keep a minimum fraction away from the endpoints
+            lo_end, hi_end = min(t_lo, t_hi), max(t_lo, t_hi)
+            t = min(max(t, lo_end + 0.1 * span), hi_end - 0.1 * span)
+            f_t, g_t = ev(t)
+            gtd_t = float(np.dot(g_t, d))
+            if (not np.isfinite(f_t)) or f_t > f0 + c1 * t * gtd0 or \
+                    f_t >= f_lo:
+                t_hi, f_hi, g_hi, gtd_hi = t, f_t, g_t, gtd_t
+            else:
+                if abs(gtd_t) <= -c2 * gtd0:
+                    return t, f_t, g_t
+                if gtd_t * (t_hi - t_lo) >= 0.0:
+                    t_hi, f_hi, g_hi, gtd_hi = t_lo, f_lo, g_lo, gtd_lo
+                t_lo, f_lo, g_lo, gtd_lo = t, f_t, g_t, gtd_t
+            if span < 1e-12:
+                break
+        return t_lo, f_lo, g_lo
+
+
+class _HostTPGD:
+    """Barzilai-Borwein two-point gradient descent."""
+
+    def __init__(self, lr=0.1):
+        self.lr = lr
+        self._prev = None
+
+    def step(self, vg, x0):
+        x = np.asarray(x0, dtype=np.float64)
+        f, g = vg(x)
+        g = np.asarray(g, dtype=np.float64)
+        if self._prev is None:
+            alpha = self.lr
+        else:
+            xp, gp = self._prev
+            dx, dg = x - xp, g - gp
+            den = np.dot(dx, dg)
+            alpha = np.dot(dx, dx) / den if den != 0 else self.lr
+            if alpha <= 0:
+                alpha = self.lr
+        self._prev = (x.copy(), g.copy())
+        return x - alpha * g
+
+
+class _HostRprop:
+    """Resilient backpropagation (sign-based steps), the counterpart of
+    ``torch.optim.Rprop`` for the geometry vector."""
+
+    def __init__(self, lr=0.1, etas=(0.5, 1.2), step_sizes=(1e-6, 50.0)):
+        self.lr = lr
+        self.eta_minus, self.eta_plus = etas
+        self.step_min, self.step_max = step_sizes
+        self._step = None
+        self._g_prev = None
+
+    def step(self, vg, x0):
+        x = np.asarray(x0, dtype=np.float64)
+        f, g = vg(x)
+        g = np.asarray(g, dtype=np.float64)
+        if self._step is None:
+            self._step = np.full_like(x, self.lr)
+            self._g_prev = np.zeros_like(x)
+        sign = g * self._g_prev
+        self._step = np.where(
+            sign > 0, np.minimum(self._step * self.eta_plus, self.step_max),
+            np.where(sign < 0,
+                     np.maximum(self._step * self.eta_minus, self.step_min),
+                     self._step))
+        g_eff = np.where(sign < 0, 0.0, g)
+        self._g_prev = g_eff
+        return x - np.sign(g_eff) * self._step

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA device (marker ``cuda``): the
 spectral-convolution and Stockham kernels against their plain torch.fft
-versions on the card, their wrappers' checks and launch counts, and the
-density paths on the card.
+versions on the card, their wrappers' checks and launch counts, the
+density paths, the fused potentials of every ported functional and the
+geometry relaxation on the card against the same calls on the CPU.
 
 They skip without a CUDA device.  This file imports no JAX, so on a GPU host
 without JAX run it without the suite's JAX conftest:
@@ -20,6 +21,7 @@ from professad_tpu_torch.ops import vpufft as vf
 
 POT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "potentials",
                    "al.gga.recpot")
+LI_POT = os.path.join(os.path.dirname(POT), "li.gga.recpot")
 
 
 @pytest.fixture
@@ -204,3 +206,125 @@ def test_stockham_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         vf.fft_mid(*_planes((2, 12, 4), 2, cuda))
     with pytest.raises(ValueError, match="shared memory"):
         vf.fft_sublane_real(_planes((8192, 2), 1, cuda)[0])
+
+
+def _functionals():
+    from professad_tpu_torch import models as tm
+
+    def pg(preset):
+        f = tm.PauliGaussian()
+        getattr(f, preset)()
+        return f
+    return {
+        "Perrot": tm.Perrot, "SmargiassiMadden": tm.SmargiassiMadden,
+        "WangGovindCarter98": tm.WangGovindCarter98,
+        "WTSF_1+x": tm.WangTeterStyleFunctional(
+            (0.8, 0.7, lambda x: 1.0 + x)),
+        "WTSF_exp": tm.WangTeterStyleFunctional(
+            (5.0 / 6.0, 5.0 / 6.0, torch.exp)),
+        "vWGTF1": tm.vWGTF1, "vWGTF2": tm.vWGTF2,
+        "LuoKarasievTrickey": tm.LuoKarasievTrickey,
+        "PG1": pg("set_PG1"), "PGS": pg("set_PGS"),
+        "PGSL025": pg("set_PGSL025"), "PGSLr": pg("set_PGSLr"),
+        "PerdewZunger": tm.PerdewZunger, "PerdewWang": tm.PerdewWang,
+        "Chachiyo": tm.Chachiyo,
+    }
+
+
+FUNCTIONALS = ["Perrot", "SmargiassiMadden", "WangGovindCarter98",
+               "WTSF_1+x", "WTSF_exp", "vWGTF1", "vWGTF2",
+               "LuoKarasievTrickey", "PG1", "PGS", "PGSL025", "PGSLr",
+               "PerdewZunger", "PerdewWang", "Chachiyo"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", FUNCTIONALS)
+def test_fused_potential_on_the_card(cuda, name, dtype):
+    """value_and_potential on the card (the WT family's kernel through
+    spectral_conv) against the f64 call on the CPU: f64 at rel 1e-12; f32
+    at rel 5e-6 for E and 5e-5 of max |dE/dn| (the CPU's own f32 sweep is
+    within 6.4e-7 and 8.2e-6 of f64 at this size)."""
+    from professad_tpu_torch.models import potentials as tpot
+    rng = np.random.default_rng(7)
+    shape = (18, 18, 18)
+    box = 7.0 * np.eye(3) + 0.2 * rng.standard_normal((3, 3))
+    den = 0.01 + 0.02 * rng.random(shape)
+    term = _functionals()[name]
+    E_ref, p_ref = tpot.value_and_potential(
+        [term], torch.tensor(box), torch.tensor(den),
+        torch.zeros(shape, dtype=torch.float64))
+    if isinstance(term, torch.nn.Module):
+        term = term.to(cuda)
+    z = dict(dtype=dtype, device=cuda)
+    E, p = tpot.value_and_potential(
+        [term], torch.tensor(box, **z), torch.tensor(den, **z),
+        torch.zeros(shape, **z))
+    torch.cuda.synchronize()
+    tol_E, tol_p = (1e-12, 1e-12) if dtype == torch.float64 else (5e-6, 5e-5)
+    assert p.dtype == dtype and p.device == cuda
+    assert abs(float(E) - float(E_ref)) <= tol_E * abs(float(E_ref))
+    assert _rel(p.double().cpu(), p_ref) <= tol_p
+
+
+def _li_system(device):
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            SmargiassiMadden,
+                                            PerdewBurkeErnzerhof)
+    box = 3.48 * np.array([[1.0, 0.02, 0.0], [0.0, 1.0, 0.03],
+                           [0.01, 0.0, 1.0]])
+    frac = np.array([[0.12, 0.1, 0.11], [0.61, 0.59, 0.62]])
+    return System(box, (12, 12, 12), [["Li", LI_POT, frac]],
+                  [IonIon, IonElectron, Hartree, SmargiassiMadden,
+                   PerdewBurkeErnzerhof], units="a", coord_type="fractional",
+                  device=device, dtype=torch.float64)
+
+
+@pytest.mark.cuda
+def test_geometry_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """Three ions + cell steps of bcc Li (12^3, f64) with the analytic
+    preconditioned TPGD density path on the card and on the CPU: the
+    fractional coordinates and the box after each step agree at rtol
+    1e-9.  On the card the density re-optimizations launch spectral_conv
+    (>= 3 a density iteration), and no call reaches the kernel with a
+    kernel or field that requires grad, so the dK guard never fires:
+    the geometry gradient goes through the torch.fft term bodies."""
+    calls = []
+    kernel = sc.spectral_conv
+
+    def watched(x, K):
+        calls.append(x.requires_grad or K.requires_grad)
+        return kernel(x, K)
+    monkeypatch.setattr(sc, "spectral_conv", watched)
+
+    den_opt = dict(n_method="TPGD", jit_loop=True, analytic=True,
+                   precondition=True, n_step_size=1.0, skip_iters=2,
+                   ntol=1e-9)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        s = _li_system(dev)
+        log, iters = [], []
+        run = s.optimize_density
+
+        def wrapped(s=s, log=log, iters=iters, run=run, **kw):
+            log.append((s._frac_ion_coords.cpu().numpy(),
+                        s._box_vecs.cpu().numpy()))
+            n_it, conv = run(**kw)
+            iters.append(n_it)
+            assert conv
+            return n_it, conv
+        s.optimize_density = wrapped
+        before = sc.launches
+        assert s.optimize_geometry(ftol=0.02, stol=0.003, g_maxiter=3,
+                                   **den_opt) is False
+        torch.cuda.synchronize()
+        runs[dev.type] = (log, iters, sc.launches - before)
+    (log_c, _, launches_c), (log_g, iters_g, launches_g) = \
+        runs["cpu"], runs["cuda"]
+    assert launches_c == 0 and launches_g >= 3 * sum(iters_g)
+    assert calls and not any(calls)
+    for (fc, bc), (fg, bg) in zip(log_c, log_g):
+        assert np.max(np.abs(fg - fc)) <= 1e-9 * np.max(np.abs(fc))
+        assert np.max(np.abs(bg - bc)) <= 1e-9 * np.max(np.abs(bc))

@@ -87,13 +87,13 @@ def test_value_and_potential_matches_jax(state):
 def test_unported_terms_rejected(state):
     box, den, vext = state
 
-    def Perrot(box_vecs, den):  # a JAX-package term this slice lacks
+    def XuWangMa(box_vecs, den):  # a JAX-package term the port lacks
         raise AssertionError("never evaluated")
 
     assert tpot.supported_terms(T_TERMS)
-    assert not tpot.supported_terms(T_TERMS + [Perrot])
+    assert not tpot.supported_terms(T_TERMS + [XuWangMa])
     with pytest.raises(KeyError):
-        tpot.value_and_potential([Perrot], torch.tensor(box),
+        tpot.value_and_potential([XuWangMa], torch.tensor(box),
                                  torch.tensor(den), torch.tensor(vext))
 
 

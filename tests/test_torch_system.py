@@ -1,7 +1,8 @@
-"""The port's System on the density-optimization path against the JAX
-package: ionic setup, state carried across, TPGD iterations, and the
-PROFESS-4 golden energy reached through the port's own main path.
-f64 on the CPU."""
+"""The port's System against the JAX package: ionic setup, the setters and
+getters, state carried across (``state_dict``, ``save`` / ``load`` both
+ways, ``set_density(resample=True)``), TPGD iterations, user-supplied
+potentials, and the PROFESS-4 golden energy reached through the port's own
+main path.  f64 on the CPU."""
 
 import os
 import subprocess
@@ -20,8 +21,12 @@ from professad_tpu.models import (IonIon as jIonIon,
                                   Hartree as jHartree,
                                   WangTeter as jWangTeter,
                                   PerdewBurkeErnzerhof as jPBE)
+from professad_tpu.ops.grid import spectral_resample as jresample
+from professad_tpu.models import potentials as jpot
 from professad_tpu_torch import System, system_state_from_jax
 from professad_tpu_torch.ops import solvers
+from professad_tpu_torch.ops.grid import spectral_resample
+from professad_tpu_torch.models import potentials as tpot
 from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
                                         WangTeter, PerdewBurkeErnzerhof)
 from paths import pot
@@ -138,17 +143,151 @@ def _potentials(box_vecs, den):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(n_method="LBFGS", potentials=_potentials),
+    dict(n_method="LBFGS", mesh=object()),
     dict(n_method="TPGD", analytic=False, jit_loop=True, mesh=object()),
-    dict(n_method="TPGD", precondition=None, potentials=_potentials),
+    dict(n_method="TPGD", precondition=None, mesh=object()),
     dict(n_method="TPGD", conv_target="euler", mesh=object()),
 ], ids=["lbfgs", "autograd", "unpreconditioned", "euler"])
 def test_unported_options_raise(pair, kwargs):
-    """What is still not ported (user-supplied potentials, multi-device
-    runs) raises with its ROADMAP item, on every solver setting."""
+    """What is still not ported (multi-device runs) raises with its
+    ROADMAP item, on every solver setting."""
     _, ts = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.optimize_density(**kwargs)
+
+
+def test_mesh_raises(pair):
+    _, ts = pair
+    ts.set_mesh(None)
+    with pytest.raises(NotImplementedError, match="A11"):
+        ts.set_mesh(object())
+    with pytest.raises(ValueError, match="autodiff gradients only"):
+        ts.optimize_density(jit_loop=True, potentials=_potentials)
+
+
+def test_getters_and_setters_match_jax(pair):
+    js, ts = pair
+    assert ts.name() == js.name() == "Al4"
+    assert ts.device() == torch.device("cpu")
+    assert ts.ions() == js.ions()
+    for units in ("a", "b"):
+        assert np.allclose(ts.lattice_vectors(units).numpy(),
+                           np.asarray(js.lattice_vectors(units)),
+                           rtol=1e-15, atol=0)
+    assert np.array_equal(ts.fractional_ionic_coordinates().numpy(),
+                          np.asarray(js.fractional_ionic_coordinates()))
+    other = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional", device="cpu")
+    v = np.random.default_rng(4).standard_normal(SHAPE)
+    other.set_potential(v)
+    assert np.array_equal(other.ionic_potential().numpy(), v)
+    with pytest.raises(ValueError, match="potential"):
+        other.set_potential(np.zeros((4, 4, 4)))
+    other.set_electron_number(11)
+    assert other.electron_count() == 11
+    E0 = other.energy()
+    other.set_Rc(30.0)
+    assert other._Rc_Rd()[0] == 30.0
+    other.set_Rc()
+    assert other._Rc_Rd() == ts._Rc_Rd()
+    other.detach()
+    assert other.energy() == E0
+
+
+def test_spectral_resample_matches_jax():
+    rng = np.random.default_rng(8)
+    for old, new in (((9, 8, 10), (12, 15, 7)), ((12, 12, 12), (8, 9, 12)),
+                     ((6, 7, 8), (6, 7, 8))):
+        f = rng.standard_normal(old)
+        ref = np.asarray(jresample(jnp.asarray(f), new))
+        out = spectral_resample(torch.tensor(f), new).numpy()
+        assert out.shape == new
+        assert np.max(np.abs(out - ref)) <= 1e-13 * np.max(np.abs(ref))
+        assert abs(out.mean() - f.mean()) <= 1e-14
+
+
+def test_set_density_resample_matches_jax(pair):
+    """A coarse density seeds the 12^3 grid (chi resampled, renormalised)
+    in both packages; without ``resample`` another shape raises."""
+    js, ts = pair
+    saved = js.state_dict()
+    coarse = 1.0 + 0.3 * np.random.default_rng(9).random((8, 8, 8))
+    js.set_density(jnp.asarray(coarse), resample=True)
+    other = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional", device="cpu")
+    other.set_density(coarse, resample=True)
+    ref = np.asarray(js.density())
+    assert np.max(np.abs(other.density().numpy() - ref)) <= 1e-12 * ref.max()
+    assert abs(other.energy() - js.energy()) <= 1e-10 * abs(js.energy())
+    js.load_state_dict(saved)
+    with pytest.raises(ValueError, match="resample=True"):
+        other.set_density(coarse)
+
+
+@pytest.mark.parametrize("n_method", ["LBFGS", "TPGD"])
+def test_optimize_density_potentials_match_jax(pair, n_method):
+    """The host loop driven by a user-supplied potential (each package's
+    fused analytic one) from the uniform start: the same density and
+    energy as the JAX package."""
+    js, ts = pair
+    saved = js.state_dict()
+    jv = js._v_ext
+    js.optimize_density(
+        ntol=1e-8, n_method=n_method, from_uniform=True,
+        potentials=lambda b, n: jpot.value_and_potential(J_TERMS, b, n,
+                                                         jv)[1])
+    other = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional", device="cpu")
+    tv = other._v_ext
+    n_it, conv = other.optimize_density(
+        ntol=1e-8, n_method=n_method, from_uniform=True,
+        potentials=lambda b, n: tpot.value_and_potential(T_TERMS, b, n,
+                                                         tv)[1])
+    assert conv
+    assert abs(other.energy("eV") - js.energy("eV")) < 1e-9
+    ref = np.asarray(js.density())
+    assert np.max(np.abs(other.density().numpy() - ref)) <= 1e-7 * ref.max()
+    js.load_state_dict(saved)
+
+
+def test_save_and_load_both_ways(pair, tmp_path):
+    """A checkpoint round-trips through the port, the port's loads into the
+    JAX package and the JAX package's into the port, energies kept."""
+    js, ts = pair
+    saved = js.state_dict()
+    jax_file, port_file = tmp_path / "jax.pkl", tmp_path / "port.pkl"
+    js.save(str(jax_file))
+    other = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional", device="cpu")
+    other.load(jax_file)
+    assert np.array_equal(other.density().numpy(), np.asarray(js.density()))
+    assert abs(other.energy() - js.energy()) <= 1e-10 * abs(js.energy())
+    R = other.cartesian_ionic_coordinates().numpy()
+    R[1] += 0.05
+    other.place_ions(R)
+    other.save(port_file)
+    again = System(4.05 * np.eye(3), SHAPE, _ions(), T_TERMS, units="a",
+                   coord_type="fractional", device="cpu")
+    again.load(port_file)
+    assert again.energy() == other.energy()
+    js.load(str(port_file))
+    assert abs(js.energy() - other.energy()) <= 1e-10 * abs(other.energy())
+    js.load_state_dict(saved)
+
+
+def test_functional_params_from_jax():
+    from professad_tpu.models import WangTeterStyleFunctional as jWTSF
+    from professad_tpu_torch.models import WangTeterStyleFunctional
+    from professad_tpu_torch.convert import functional_params_from_jax
+    jf = jWTSF((0.7, 0.9, lambda x: 1.0 + x))
+    params = functional_params_from_jax(
+        {k: np.asarray(v) for k, v in jf.params.items()})
+    assert set(params) == {"alpha", "beta"}
+    assert params["alpha"].dtype == torch.float64
+    tf = WangTeterStyleFunctional((5.0 / 6.0, 5.0 / 6.0, torch.exp))
+    tf.load_params(params)
+    assert float(tf.params["alpha"].detach()) == 0.7
+    assert float(tf.params["beta"].detach()) == 0.9
 
 
 def test_no_device_means_the_card():
