@@ -3,9 +3,12 @@ H100.
 
 The port grows slice by slice beside the JAX package ``professad_tpu``,
 which stays the reference.  Ported so far: the single-device ``System``
-(setup, setters and getters, checkpoints), the WT family, the local and
-GGA kinetic functionals, the LDA and PBE exchange-correlation functionals
-and their fused analytic potentials, the density optimizers (host-loop and
+(setup, setters and getters, checkpoints), the whole functional library
+(the WT family, WGC99, Foley-Madden, KGAP, Huang-Carter and revHC, MGP,
+XWM, the local, GGA and Yukawa-GGA kinetic functionals, the neural
+functional with its training step, the LDA and PBE exchange-correlation
+functionals) with their fused analytic potentials, the field-dependent
+(xi-ladder) convolution, the density optimizers (host-loop and
 whole-optimization L-BFGS and TPGD; autograd, fused analytic or
 user-supplied chi gradient; the exact uniform-density preconditioner), the
 convergence diagnostics, forces and stress, and the geometry relaxations
@@ -24,14 +27,20 @@ unless given ``device="cpu"``.
 from .ops.grid import (wavevecs, grad_i, grad_dot_grad, laplacian,
                        reduced_gradient, reduced_gradient_squared,
                        reduced_laplacian)
-from .ops.interp import interpolate
+from .ops.interp import interpolate, interpolate_kernel
+from .ops.fieldconv import (field_dependent_convolution,
+                            field_dependent_convolution_naive, xi_ladder)
 from .ops.autodiff import get_functional_derivative
 from .system import System
-from .convert import system_state_from_jax, functional_params_from_jax
+from .convert import (system_state_from_jax, functional_params_from_jax,
+                      functional_state_from_jax)
 
 __all__ = ["System", "system_state_from_jax", "functional_params_from_jax",
+           "functional_state_from_jax",
            "wavevecs", "grad_i", "grad_dot_grad", "laplacian",
            "reduced_gradient", "reduced_gradient_squared",
-           "reduced_laplacian", "interpolate", "get_functional_derivative"]
+           "reduced_laplacian", "interpolate", "interpolate_kernel",
+           "field_dependent_convolution", "field_dependent_convolution_naive",
+           "xi_ladder", "get_functional_derivative"]
 
 __version__ = "0.1.0"

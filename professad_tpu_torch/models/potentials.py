@@ -1,36 +1,49 @@
 """Fused analytic energy + functional-derivative (potential) evaluation.
 
-PyTorch port of ``professad_tpu/models/potentials.py`` for every functional
-that needs no ladder, ODE table or spline: IonElectron, Hartree,
-ThomasFermi, Weizsaecker, the Wang-Teter family (WT, Perrot, SM, WGC98 and
-``WangTeterStyleFunctional``), vWGTF1/2, LKT, ``PauliGaussian``, the LDA
+PyTorch port of ``professad_tpu/models/potentials.py``, for every
+functional of the JAX library that has a fused form there: IonElectron,
+Hartree, ThomasFermi, Weizsaecker, the Wang-Teter family (WT, Perrot, SM,
+WGC98 and ``WangTeterStyleFunctional``), WGC99, Foley-Madden, KGAP (a
+keyword ``functools.partial`` binding E_gap), XWM (the bare function or a
+keyword partial binding kappa), MGP, Huang-Carter and revHC, the tagged
+YukawaGGA presets, vWGTF1/2, LKT, ``PauliGaussian``, the LDA
 exchange-correlation family and PBE.  Each term contributes (E, dE/dn)
 through a shared ``SpectralCtx``, so the density spectrum, the gradient
 fields and the wavevectors are computed once per evaluation: one forward
 sweep, no autograd graph, 13 3-D transforms for WT+PBE.  The dedicated
-convolutions (the vW Laplacian and the WT-family kernel with alpha = beta)
-go through ``grid.spectral_convolution``, i.e. the CUDA spectral-convolution
-kernel on the card.
+convolutions with a fixed real kernel (the vW Laplacian, the WT-family,
+WGC99, KGAP, XWM, Foley-Madden linear and MGP kernels) go through
+``grid.spectral_convolution``, i.e. the CUDA spectral-convolution kernel on
+the card; the ladder terms' batched 4-D transforms go through
+``torch.fft`` (``ops/fieldconv.py``).
 
-Terms are dispatched by name (``_DISPATCH``), or, for the trainable
-functionals, by the class of the module that owns them
-(``_INSTANCE_DISPATCH``): a term may be the module itself or its bound
-``forward``.  Their parameters are read detached: the fused sweep is a
-constant of the functional's parameters.
+Terms are dispatched by name (``_DISPATCH``), by the class of the module
+that owns them (``_INSTANCE_DISPATCH``: a term may be the module itself or
+its bound ``forward``), or as a keyword partial (``_partial_vp``).  The
+trainable functionals' parameters are read detached: the fused sweep is a
+constant of the functional's parameters, and no kernel that requires grad
+reaches the CUDA kernel.  Opaque closures stay autograd-only.
 
 E is accumulated in f64 (``qmean`` returns f64 for f32 fields); dE/dn is in
 the working dtype, per grid point, NOT scaled by the quadrature weight.
 Other terms raise ``KeyError`` (``supported_terms`` returns False).
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..ops.grid import (wavevecs, volume, qmean, wmean, safe_sqrt, rfftn,
                         irfftn, imul, spectral_convolution)
+from ..ops.interp import _bracket
+from ..ops.fieldconv import ladder_convolution, ladder_adjoint
 from ..utils.naming import term_name
-from .kinetic_local import TF_COEFF
-from .kinetic_nonlocal import G_inv_lind, WGC98_ALPHA, WGC98_BETA
+from .kinetic_local import TF_COEFF, _mean_density
+from .kinetic_nonlocal import (G_inv_lind, G_inv_gap, WGC98_ALPHA, WGC98_BETA,
+                               KGAP, XuWangMa, _kgap_exponents,
+                               _stabilizer_fprime0, _wgc99_kernel,
+                               _xwm_kernels)
 
 __all__ = ["value_and_potential", "supported_terms", "SpectralCtx"]
 
@@ -303,7 +316,7 @@ def _vp_vwgtf(ctx, which):
     """vWGTF1/2: d = n / n0 with n0 from the rounded, detached electron
     count (so n0 carries no density gradient), enhancement G(d) on TF."""
     den = ctx.den
-    n0 = torch.round(wmean(den).detach() * ctx.vol) / ctx.vol
+    n0 = _mean_density(ctx.box_vecs, den)
     d = den / n0
     if which == 1:
         G = 0.9892 * d ** (-1.2994)
@@ -371,26 +384,506 @@ def _vp_pw_correlation(ctx):
     return E, deps_dn * ctx.den + eps
 
 
-def _vp_wtsf(ctx, owner):
-    """WangTeterStyleFunctional: E = vW + TF f(u), u = T_NL / (f'(0) TF),
-    both energies scalars, so the potential follows from the scalar
-    quotient rule; f'(u) is ``torch.func.grad`` of the stabilizer at the
-    0-d u (no graph reaches the solver)."""
-    dt = ctx.den.dtype
-    alpha = float(owner.params["alpha"].detach())
-    beta = float(owner.params["beta"].detach())
+def _detached(owner):
+    return {k: v.detach() for k, v in owner.params.items()}
+
+
+def _vp_mgp(ctx, owner):
+    """MiGenovaPavanello: a fixed k-space kernel (given the detached,
+    rounded n0), so the nonlocal potential is the symmetric-kernel closed
+    form (5/3) n^{-1/6} conv(K, n^{5/6})."""
+    den = ctx.den
+    _, _, _, k2 = ctx.kvecs
+    n0 = _mean_density(ctx.box_vecs, den)
+    k_F = (3.0 * np.pi**2 * n0) ** (1.0 / 3.0)
+    if owner.kernel is None:
+        raise RuntimeError("MGP: call prepare() before the analytic path.")
+    K = owner._kernel_ft(_detached(owner), den.dtype, k2, k_F)
+    g = den ** (5.0 / 6.0)
+    conv = spectral_convolution(K, g, ctx.shape)
     E_vw, pot_vw = _vp_weizsaecker(ctx)
     E_tf, pot_tf = _vp_thomas_fermi(ctx)
-    E_nl, pot_nl = _vp_nlkef(ctx, alpha, beta)
-    u = (E_nl / owner.fprime0 / E_tf).to(dt)
-    fu = owner.f(u)
-    fpu = torch.func.grad(owner.f)(u)
-    # du/dn = (T_NL' TF - T_NL TF') / (f'(0) TF^2), per point
-    du = ((pot_nl * E_tf - E_nl * pot_tf).to(dt) / owner.fprime0
+    E = E_vw + E_tf + qmean(g * conv) * ctx.vol
+    pot = pot_vw + pot_tf + (5.0 / 3.0) * den ** (-1.0 / 6.0) * conv
+    return E, pot
+
+
+# ---------------- ladder terms: dense Hermite weights on the grid ----------
+
+def _tangent_matrix(lad):
+    """Catmull-Rom tangent operator T (m = T f) of the ladder, (n_xi,
+    n_xi), as ``ops.interp._tangents`` computes the tangents."""
+    n = lad.shape[0]
+    inv = 1.0 / torch.diff(lad)
+    T = lad.new_zeros((n, n))
+    T[0, 0], T[0, 1] = -inv[0], inv[0]
+    T[n - 1, n - 2], T[n - 1, n - 1] = -inv[-1], inv[-1]
+    k = torch.arange(1, n - 1, device=lad.device)
+    T[k, k - 1] += -0.5 * inv[k - 1]
+    T[k, k] += 0.5 * inv[k - 1] - 0.5 * inv[k]
+    T[k, k + 1] += 0.5 * inv[k]
+    return T
+
+
+def _ladder_weights(lad, xis, dtype):
+    """Dense per-point ladder weights w and their xi-derivative dw, shapes
+    (..., n_xi), such that K(r) = sum_j w_j(r) f_j(r) reproduces
+    ``ops.interp.interpolate_kernel`` (Catmull-Rom tangents included) and
+    dK/dxi = sum_j dw_j f_j."""
+    lad = lad.to(dtype)
+    T = _tangent_matrix(lad)
+    idx = _bracket(lad, xis)
+    x0 = lad[idx]
+    dx = lad[idx + 1] - x0
+    t = (xis - x0) / dx
+    t2 = t * t
+    t3 = t2 * t
+    h00 = 1.0 - 3.0 * t2 + 2.0 * t3
+    h10 = t - 2.0 * t2 + t3
+    h01 = 3.0 * t2 - 2.0 * t3
+    h11 = t3 - t2
+    h00_t = -6.0 * t + 6.0 * t2
+    h10_t = 1.0 - 4.0 * t + 3.0 * t2
+    h01_t = 6.0 * t - 6.0 * t2
+    h11_t = 3.0 * t2 - 2.0 * t
+
+    jj = torch.arange(lad.shape[0], device=lad.device)
+    e = idx[..., None]
+    on0 = (jj == e).to(dtype)
+    on1 = (jj == e + 1).to(dtype)
+    T0 = T[idx]        # (..., n_xi) rows T[idx]
+    T1 = T[idx + 1]
+    w = (h00[..., None] * on0 + h01[..., None] * on1
+         + dx[..., None] * (h10[..., None] * T0 + h11[..., None] * T1))
+    dw = ((h00_t[..., None] * on0 + h01_t[..., None] * on1) / dx[..., None]
+          + h10_t[..., None] * T0 + h11_t[..., None] * T1)
+    return w, dw
+
+
+def _vp_hc_family(ctx, owner, aux=None):
+    """HuangCarter / RevisedHuangCarter fused potential.
+
+    The functional derivative of T_NL = C int n^{8/3-b} K[n](r) / xi(r)^3
+    has three pieces: (a) the direct density factors; (b) the adjoint of
+    the field-dependent convolution, another ladder of convolutions with
+    the Hermite weights on the output side (one batched 4-D forward
+    transform + one inverse); (c) the xi(r) chain (dK/dxi from the weight
+    derivatives and the -3/xi^4 factor), split into its local part and a
+    divergence term for the |grad n|^2 dependence.  Needs the kernel slabs
+    of ``owner.prepare`` (``aux``, else the owner's own)."""
+    if aux is None:
+        aux = owner.aux_arrays()
+    if aux is None:
+        raise RuntimeError(
+            "HC analytic path: call prepare(box_vecs, den) first (the "
+            "kernel-slab aux is required).")
+    den = ctx.den
+    dt = den.dtype
+    lad = aux["ladder"].to(dt)
+    W = aux["slabs"].to(dt)          # (m1, m2, m3, n_xi)
+    params = _detached(owner)
+    beta = float(params["beta"])
+    C_HC = TF_COEFF * 8.0 * (3.0 * np.pi**2)
+
+    gdg = ctx.gdg
+    k_F = (3.0 * np.pi**2 * den) ** (1.0 / 3.0)
+
+    if type(owner).__name__ == "HuangCarter":
+        lamb = params["lamb"].to(dt)
+        u = gdg / (den ** (8.0 / 3.0) + 1e-30)
+        xis = 2.0 * k_F * (1.0 + lamb * u)
+        dxi_dn = (xis / (3.0 * den)
+                  - 2.0 * k_F * lamb * (8.0 / 3.0) * u / den)
+        dxi_dgdg = 2.0 * k_F * lamb / (den ** (8.0 / 3.0) + 1e-30)
+    else:  # RevisedHuangCarter
+        a = params["a"].to(dt)
+        b = params["b"].to(dt)
+        c2 = 0.25 * (3.0 * np.pi**2) ** (-2.0 / 3.0)
+        s2 = c2 * gdg * den ** (-8.0 / 3.0)
+        F = 1.0 + a * s2 / (1.0 + b * s2)
+        Fp = a / (1.0 + b * s2) ** 2
+        xis = 2.0 * k_F * F
+        dxi_dn = ((2.0 / 3.0) * k_F * F / den
+                  + 2.0 * k_F * Fp * (-8.0 / 3.0) * s2 / den)
+        dxi_dgdg = 2.0 * k_F * Fp * c2 * den ** (-8.0 / 3.0)
+
+    # batched forward convolution: f_j(r) = irfftn(W_j * g^)(r)
+    g = den ** beta
+    conv = ladder_convolution(W, g, ctx.shape)
+
+    w, dw = _ladder_weights(lad, xis, dt)
+    K = torch.sum(w * conv, dim=-1)
+    dK_dxi = torch.sum(dw * conv, dim=-1)
+
+    xi3 = xis * xis * xis
+    A = den ** (8.0 / 3.0 - beta)
+    E_nl = C_HC * qmean(A * K / xi3) * ctx.vol
+
+    # (a) direct density factor
+    pot = C_HC * (8.0 / 3.0 - beta) * den ** (5.0 / 3.0 - beta) * K / xi3
+
+    # (b) convolution adjoint: J = sum_j conv_j(F_out * w_j), one batched
+    # forward + one inverse (the slabs are real and |k|-symmetric)
+    B = (C_HC * A / xi3)[..., None] * w
+    J = ladder_adjoint(W, B, ctx.shape)
+    pot = pot + beta * den ** (beta - 1.0) * J
+
+    # (c) xi chain: G = d/dxi of the integrand
+    G = C_HC * A * (dK_dxi / xi3 - 3.0 * K / (xi3 * xis))
+    pot = pot + G * dxi_dn
+    gx, gy, gz = ctx.grads
+    wdiv = G * dxi_dgdg
+    pot = pot - 2.0 * ctx.divergence(wdiv * gx, wdiv * gy, wdiv * gz)
+
+    E_vw, pot_vw = _vp_weizsaecker(ctx)
+    E_tf, pot_tf = _vp_thomas_fermi(ctx)
+    return E_vw + E_tf + E_nl, pot_vw + pot_tf + pot
+
+
+def _quotient_chain(ctx, E_nl, pot_nl, f, fprime0=1.0):
+    """E = vW + TF f(u), u = E_nl / (f'(0) TF), with both energies
+    scalars: the potential by the scalar quotient rule, f'(u) by
+    ``torch.func.grad`` of the stabilizer at the 0-d u."""
+    dt = ctx.den.dtype
+    E_vw, pot_vw = _vp_weizsaecker(ctx)
+    E_tf, pot_tf = _vp_thomas_fermi(ctx)
+    u = (E_nl / fprime0 / E_tf).to(dt)
+    fu = f(u)
+    fpu = torch.func.grad(f)(u)
+    # du/dn = (E_nl' TF - E_nl TF') / (f'(0) TF^2), per point
+    du = ((pot_nl * E_tf - E_nl * pot_tf).to(dt) / fprime0
           / (E_tf * E_tf).to(dt))
     E = E_vw + E_tf * fu
     pot = pot_vw + pot_tf * fu + E_tf.to(dt) * fpu * du
     return E, pot
+
+
+def _vp_wtsf(ctx, owner):
+    """WangTeterStyleFunctional: the quotient chain over the WT-style
+    nonlocal term."""
+    params = _detached(owner)
+    E_nl, pot_nl = _vp_nlkef(ctx, float(params["alpha"]),
+                             float(params["beta"]))
+    return _quotient_chain(ctx, E_nl, pot_nl, owner.f, owner.fprime0)
+
+
+def _vp_wgc99(ctx, owner):
+    """WangGovindCarter99: the second-order Taylor density-dependent
+    kernel; the potential is the product / adjoint expansion of the six
+    convolution terms (12 symmetric convolutions)."""
+    den = ctx.den
+    dt = den.dtype
+    _, _, _, k2 = ctx.kvecs
+    params = _detached(owner)
+    n0 = _mean_density(ctx.box_vecs, den)
+    n_ref = params["kappa"].to(dt) * n0
+    k_F = (3.0 * np.pi**2 * n_ref) ** (1.0 / 3.0)
+    eta = safe_sqrt(k2) / (2.0 * k_F)
+    alpha = float(params["alpha"])
+    beta = float(params["beta"])
+    gamma = float(params["gamma"])
+    w0, w1, w2 = _wgc99_kernel(eta, alpha, beta, gamma, owner.num_terms)
+    T = 20.0 * n_ref ** (5.0 / 3.0 - alpha - beta)
+    w0 = T * w0
+    w1 = T * w1
+    w2 = T * w2
+    K1 = -eta * w1 / (6.0 * n_ref)
+    K2 = (eta * eta * w2 + (7.0 - gamma) * eta * w1) / (36.0 * n_ref**2)
+    K3 = (eta * eta * w2 + (1.0 + gamma) * eta * w1) / (36.0 * n_ref**2)
+
+    theta = den - n_ref
+    nb = den ** beta
+    a = den ** alpha
+    dnb = beta * den ** (beta - 1.0)
+    da = alpha * den ** (alpha - 1.0)
+
+    def cv(kern, field):
+        return spectral_convolution(kern, field, ctx.shape)
+
+    C0 = cv(w0, nb)
+    C1 = cv(K1, nb)
+    C1p = cv(K1, nb * theta)
+    C2 = cv(K2, nb)
+    C2p = cv(K2, 0.5 * nb * theta * theta)
+    C3p = cv(K3, nb * theta)
+    conv = (C0 + theta * C1 + C1p + 0.5 * theta * theta * C2 + C2p
+            + theta * C3p)
+    E_nl = TF_COEFF * qmean(a * conv) * ctx.vol
+
+    at = a * theta
+    pot = (da * conv                       # through a = n^alpha
+           + cv(w0, a) * dnb               # term 1 adjoint
+           + a * C1                        # term 2, theta factor
+           + cv(K1, at) * dnb              # term 2 adjoint
+           + cv(K1, a) * (dnb * theta + nb)        # term 3 adjoint
+           + at * C2                       # term 4, theta^2 factor
+           + cv(K2, 0.5 * at * theta) * dnb        # term 4 adjoint
+           + cv(K2, a) * (0.5 * dnb * theta * theta + nb * theta)  # term 5
+           + a * C3p                       # term 6, theta factor
+           + cv(K3, at) * (dnb * theta + nb))      # term 6 adjoint
+    pot = TF_COEFF * pot
+
+    E_vw, pot_vw = _vp_weizsaecker(ctx)
+    E_tf, pot_tf = _vp_thomas_fermi(ctx)
+    return E_vw + E_tf + E_nl, pot_vw + pot_tf + pot
+
+
+def _vp_kgap(ctx, E_gap, f):
+    """KGAP: the quotient chain over the gapped-jellium response kernel;
+    ``E_gap`` and ``f`` come from a keyword partial (any f with
+    f(0) = 1)."""
+    den = ctx.den
+    fprime0 = _stabilizer_fprime0(f, "KGAP")
+    alpha, beta = _kgap_exponents(E_gap)
+    # KGAP's n0 is the rounded detached mean density (unlike WT's)
+    n0 = _mean_density(ctx.box_vecs, den)
+
+    eta, G_inv = G_inv_gap(ctx.box_vecs, den, E_gap)
+    nz = eta != 0.0
+    G_safe = torch.where(nz, G_inv, 1.0)
+    kern = torch.where(nz, 1.0 / G_safe - 3.0 * eta * eta - 1.0, 0.0)
+    kern = (5.0 / (9.0 * alpha * beta * n0 ** (alpha + beta - 5.0 / 3.0))
+            * kern)
+
+    g_b = den ** beta
+    g_a = den ** alpha
+    conv_b = spectral_convolution(kern, g_b, ctx.shape)
+    conv_a = spectral_convolution(kern, g_a, ctx.shape)
+    T_NL = TF_COEFF * qmean(g_a * conv_b) * ctx.vol
+    dT_NL = TF_COEFF * (alpha * den ** (alpha - 1.0) * conv_b
+                        + beta * den ** (beta - 1.0) * conv_a)
+    return _quotient_chain(ctx, T_NL, dT_NL, f, fprime0)
+
+
+_YUK_X0 = 40.0 / 27.0
+
+
+def _yukawa_F(owner, y, s2, q, dt):
+    """A tagged preset's F(y, s^2, q) and its closed-form partials
+    (F, F_y, F_s2, F_q)."""
+    x0 = _YUK_X0
+    tag = owner._preset[0]
+    if tag == "yuk1":
+        return y, torch.ones_like(y), torch.zeros_like(y), torch.zeros_like(y)
+    if tag == "yuk2":
+        lin = 1.0 + x0 * (q - s2)
+        return y * lin, lin, -y * x0, y * x0
+    if tag == "yuk3":
+        a = float(owner._preset[1])
+        th = torch.tanh((a / 2.0) * (x0 * (q - s2)))
+        T = 1.0 + (2.0 / a) * th
+        Tp = 1.0 - th * th
+        return y * T, T, -y * Tp * x0, y * Tp * x0
+    if tag == "yuk4":
+        a = float(owner._preset[1])
+        th1 = torch.tanh((a / 2.0) * (-x0 * s2))
+        T1 = 1.0 + (2.0 / a) * th1
+        T1p = 1.0 - th1 * th1
+        th2 = torch.tanh(x0 * q)         # T_2(2, x): (2/2) tanh(2x/2)
+        T2 = 1.0 + th2
+        T2p = 1.0 - th2 * th2
+        return (y * T1 * T2, T1 * T2, y * T1p * (-x0) * T2,
+                y * T1 * T2p * x0)
+    if tag in ("yuk2beta", "yuk3beta"):
+        params = _detached(owner)
+        ap = params["alpha"].to(dt)
+        bp = params["beta"].to(dt)
+        G0 = ap**2 * (ap**2 - 60.0) / (108.0 * bp * (9.0 * bp - 10.0))
+        g_c = x0 / bp - 4.0 / ap**2 * (bp - 1.0) * G0
+        G = g_c * (q - bp * s2)
+        if tag == "yuk2beta":
+            return 1.0 - G0 + y * (G0 + G), G0 + G, -y * g_c * bp, y * g_c
+        a = float(owner._preset[1])
+        th = torch.tanh((a / 2.0) * (-G0 + y * (G0 + G)))
+        Tp = 1.0 - th * th
+        return (1.0 + (2.0 / a) * th, Tp * (G0 + G), -Tp * y * g_c * bp,
+                Tp * y * g_c)
+    raise KeyError(f"unknown YukawaGGA preset tag {tag!r}")
+
+
+def _vp_yukawa(ctx, owner):
+    """YukawaGGA preset fused potential.
+
+    E = vW + int TF_ked F(y, s^2, q), y = c(n) u with u the spline
+    field-dependent convolution of n^beta with the ladder of Yukawa
+    kernels 4 pi / (k^2 + xi_j^2), xi = alpha k_F(r).  Five chains: (1)
+    the direct TF_ked factor; (2) the prefactor c(n) ~ n^{2/3 - beta};
+    (3) u's xi dependence by the Hermite-weight derivatives, d xi/dn =
+    xi / (3 n); (4) u's convolution adjoint over g = n^beta, batched like
+    the HC family's; (5) the s^2 (divergence) and q (Laplacian) chains of
+    the preset's closed-form partials.  Tagged presets with spline=True
+    only; needs the ladder of ``owner.prepare``."""
+    if owner._preset is None or not owner.spline:
+        raise KeyError(
+            "YukawaGGA analytic potential: only the tagged presets with "
+            "spline=True are supported; gate with supported_terms().")
+    if owner.xi_sparse is None:
+        raise RuntimeError(
+            "YukawaGGA analytic path: call prepare(box_vecs, den) first "
+            "(the static xi ladder is required).")
+
+    den = ctx.den
+    dt = den.dtype
+    _, _, _, k2 = ctx.kvecs
+    params = _detached(owner)
+    alpha = float(params["alpha"])
+    beta = float(params["beta"])
+    lad = torch.as_tensor(owner.xi_sparse, dtype=dt, device=den.device)
+
+    k_F = (3.0 * np.pi**2 * den) ** (1.0 / 3.0)
+    xis = alpha * k_F
+    g = den ** beta
+
+    # ladder of constant-xi Yukawa kernels; one batched inverse transform
+    W = 4.0 * np.pi / (k2[..., None] + lad * lad)
+    conv = ladder_convolution(W, g, ctx.shape)
+    w, dw = _ladder_weights(lad, xis, dt)
+    u = torch.sum(w * conv, dim=-1)
+    du_dxi = torch.sum(dw * conv, dim=-1)
+
+    # y = c(n) u, c = 3 pi alpha^2 / (4 k_F n^{beta-1}) ~ n^{2/3 - beta}
+    c = 3.0 * np.pi * alpha**2 / (4.0 * k_F * den ** (beta - 1.0))
+    y = c * u
+
+    c2 = 0.25 * (3.0 * np.pi**2) ** (-2.0 / 3.0)
+    s2 = c2 * ctx.gdg * den ** (-8.0 / 3.0)
+    lap_den = irfftn(-k2 * ctx.den_ft, ctx.shape)
+    q = c2 * lap_den * den ** (-5.0 / 3.0)
+    F, F_y, F_s2, F_q = _yukawa_F(owner, y, s2, q, dt)
+
+    TF_ked = TF_COEFF * den ** (5.0 / 3.0)
+    E_vw, pot_vw = _vp_weizsaecker(ctx)
+    E = E_vw + qmean(TF_ked * F) * ctx.vol
+
+    # (1) direct TF_ked factor
+    pot = pot_vw + (5.0 / 3.0) * TF_COEFF * den ** (2.0 / 3.0) * F
+
+    # (2) + (3): y's local chains (prefactor + xi), d xi/dn = xi/(3n)
+    Ay = TF_ked * F_y
+    pot = pot + Ay * ((2.0 / 3.0 - beta) * y / den
+                      + c * du_dxi * xis / (3.0 * den))
+
+    # (4) convolution adjoint over g = n^beta (batched, kernels symmetric)
+    B = (Ay * c)[..., None] * w
+    adj = ladder_adjoint(W, B, ctx.shape)
+    pot = pot + beta * den ** (beta - 1.0) * adj
+
+    # (5a) s^2 chain: local + divergence
+    As2 = TF_ked * F_s2
+    pot = pot + As2 * (-8.0 / 3.0) * s2 / den
+    gx, gy, gz = ctx.grads
+    wdiv = As2 * c2 * den ** (-8.0 / 3.0)
+    pot = pot - 2.0 * ctx.divergence(wdiv * gx, wdiv * gy, wdiv * gz)
+
+    # (5b) q chain: local + Laplacian adjoint
+    Aq = TF_ked * F_q
+    pot = pot + Aq * (-5.0 / 3.0) * q / den
+    pot = pot + irfftn(-k2 * rfftn(Aq * c2 * den ** (-5.0 / 3.0)),
+                       ctx.shape)
+    return E, pot
+
+
+def _vp_xwm(ctx, kappa=0.0):
+    """XuWangMa for a given kappa (the bare function is kappa = 0)."""
+    den = ctx.den
+    _, _, _, k2 = ctx.kvecs
+    n0 = _mean_density(ctx.box_vecs, den)
+    # G_inv_lindhard's own (unrounded) detached mean density, as the
+    # energy body computes it
+    n0_lind = wmean(den).detach() * ctx.vol / ctx.vol
+    k_F = (3.0 * np.pi**2 * n0_lind) ** (1.0 / 3.0)
+    eta = safe_sqrt(k2) / (2.0 * k_F)
+    G_inv = G_inv_lind(eta)
+    K0, K1a, K1b = _xwm_kernels(eta, G_inv, n0, kappa)
+
+    pa = kappa + 5.0 / 6.0
+    pb = kappa + 11.0 / 6.0
+    g0 = den ** pa
+    g1 = den ** pb
+    dg0 = pa * den ** (pa - 1.0)
+    dg1 = pb * den ** (pb - 1.0)
+
+    def cv(kern, field):
+        return spectral_convolution(kern, field, ctx.shape)
+
+    c00 = cv(K0, g0)
+    c1a1 = cv(K1a, g1)
+    c1b0 = cv(K1b, g0)
+    E_nl = (qmean(g0 * c00) + qmean(g0 * c1a1) - qmean(g0 * c1b0)) * ctx.vol
+
+    pot = (2.0 * dg0 * c00
+           + dg0 * c1a1 + dg1 * cv(K1a, g0)
+           - 2.0 * dg0 * c1b0)
+
+    E_vw, pot_vw = _vp_weizsaecker(ctx)
+    E_tf, pot_tf = _vp_thomas_fermi(ctx)
+    return E_vw + E_tf + E_nl, pot_vw + pot_tf + pot
+
+
+def _vp_fm(ctx, owner):
+    """FoleyMadden: the cubic quadratic-response term's potential expands
+    the cubic polynomial in the 11 convolution fields F_i, with all the
+    adjoint convolutions combined in k-space (11 forward transforms and
+    one inverse), plus the WT-style linear term and the stabilizer
+    chain."""
+    den = ctx.den
+    _, _, _, k2 = ctx.kvecs
+    params = _detached(owner)
+    alpha = float(params["alpha"])
+    beta = float(params["beta"])
+
+    n0 = _mean_density(ctx.box_vecs, den)
+    k_F = (3.0 * np.pi**2 * n0) ** (1.0 / 3.0)
+    # G_inv_lindhard's own (unrounded) detached n0, as the energy does
+    k_F_lind = (3.0 * np.pi**2 * wmean(den).detach()) ** (1.0 / 3.0)
+    eta = safe_sqrt(k2) / (2.0 * k_F_lind)
+    G_inv = G_inv_lind(eta)
+    q = 2.0 * eta
+
+    kernel = (TF_COEFF * 5.0
+              / (9.0 * alpha**2 * n0 ** (2.0 * alpha - 5.0 / 3.0))
+              * (1.0 / G_inv - 3.0 * eta * eta - 1.0))
+    d_a = den ** alpha - n0 ** alpha
+    conv = spectral_convolution(kernel, d_a, ctx.shape)
+    NL1 = qmean(d_a * conv) * ctx.vol
+    dNL1 = 2.0 * alpha * den ** (alpha - 1.0) * conv
+
+    K_delta = (alpha**2 * n0 ** (2.0 * alpha - 1.0) / 18.0 * k_F**2
+               * (6.0 * alpha - 5.0) * kernel)
+    f1, f2, f3, f4, f5, f6, f7 = owner._piecewise_fits(q)
+    nz = q != 0.0
+    f1_over_q2 = torch.where(nz, f1 / torch.where(nz, q, 1.0) ** 2, 0.4)
+    kerns = [f1, f1 * q**4, f1_over_q2, f1 * q**2, f2 * f3, f2, f5, f4,
+             f6, f7, K_delta]
+
+    delta_nb = den ** beta - n0 ** beta
+    dnb_ft = rfftn(delta_nb)
+    F1, F2, F3, F4, F5, F6, F7, F8, F9, F10, F11 = [
+        irfftn(kern * dnb_ft, ctx.shape) for kern in kerns]
+    aux = (-13.0 / 540.0 * F1**3 - F2 * F3**2 / 40.0 + F4 * F3 * F1 / 20.0
+           + 3.0 * F5 * F6**2 + 3.0 * F7 * F8**2 + 3.0 * F9 * F10**2
+           + 3.0 * F11 * delta_nb**2)
+    c2 = -k_F**2 / beta**3 / n0 ** (3.0 * beta - 1.0)
+    NL2 = c2 * qmean(aux) * ctx.vol
+
+    # d aux / d F_i, then one combined k-space adjoint
+    dF = [-13.0 / 180.0 * F1**2 + F4 * F3 / 20.0,       # F1
+          -F3**2 / 40.0,                                 # F2
+          -F2 * F3 / 20.0 + F4 * F1 / 20.0,              # F3
+          F3 * F1 / 20.0,                                # F4
+          3.0 * F6**2,                                   # F5
+          6.0 * F5 * F6,                                 # F6
+          3.0 * F8**2,                                   # F7
+          6.0 * F7 * F8,                                 # F8
+          3.0 * F10**2,                                  # F9
+          6.0 * F9 * F10,                                # F10
+          3.0 * delta_nb**2]                             # F11
+    acc = kerns[0] * rfftn(dF[0])
+    for kern, g in zip(kerns[1:], dF[1:]):
+        acc = acc + kern * rfftn(g)
+    adj = irfftn(acc, ctx.shape) + 6.0 * F11 * delta_nb
+    dNL2 = c2 * adj * beta * den ** (beta - 1.0)
+    return _quotient_chain(ctx, NL1 + NL2, dNL1 + dNL2, owner.f)
 
 
 _WT = 5.0 / 6.0
@@ -437,45 +930,85 @@ _DISPATCH = {
                                           _vp_chachiyo_correlation]),
 }
 
-# trainable functionals, dispatched by the class of the owning module
+# trainable functionals, dispatched by the class of the owning module:
+# fn(ctx, owner, aux) with aux the term's entry of System's term-aux list
 _INSTANCE_DISPATCH = {
-    "PauliGaussian": lambda ctx, owner: _vp_pauli_gaussian(
-        ctx, {k: v.detach() for k, v in owner.params.items()}),
-    "WangTeterStyleFunctional": _vp_wtsf,
+    "PauliGaussian": lambda ctx, owner, aux: _vp_pauli_gaussian(
+        ctx, _detached(owner)),
+    "WangTeterStyleFunctional": lambda ctx, owner, aux: _vp_wtsf(ctx, owner),
+    "MiGenovaPavanello": lambda ctx, owner, aux: _vp_mgp(ctx, owner),
+    "HuangCarter": _vp_hc_family,
+    "RevisedHuangCarter": _vp_hc_family,
+    "WangGovindCarter99": lambda ctx, owner, aux: _vp_wgc99(ctx, owner),
+    "FoleyMadden": lambda ctx, owner, aux: _vp_fm(ctx, owner),
+    "YukawaGGA": lambda ctx, owner, aux: _vp_yukawa(ctx, owner),
 }
 
 
-def _owner_class(t):
-    """Class name of the module a term belongs to: ``__self__`` of a bound
-    method (``functional.forward``), else the term itself."""
-    return type(getattr(t, "__self__", t)).__name__
+def _owner(t):
+    """The module a term belongs to: ``__self__`` of a bound method
+    (``functional.forward``), else the term itself."""
+    return getattr(t, "__self__", t)
+
+
+def _partial_vp(t):
+    """(ctx -> (E, pot)) for a keyword ``functools.partial`` of KGAP (E_gap
+    and optionally f) or XuWangMa (kappa), else None.  Positional bindings
+    are rejected: they would shift (box_vecs, den)."""
+    if not isinstance(t, functools.partial) or t.args:
+        return None
+    kw = dict(t.keywords or {})
+    if t.func is KGAP and "E_gap" in kw and set(kw) <= {"E_gap", "f"}:
+        E_gap = float(kw["E_gap"])
+        f = kw.get("f", lambda x: 1.0 + x)
+        return lambda ctx: _vp_kgap(ctx, E_gap, f)
+    if t.func is XuWangMa and set(kw) <= {"kappa"}:
+        kappa = float(kw.get("kappa", 0.0))
+        return lambda ctx: _vp_xwm(ctx, kappa)
+    return None
+
+
+def _term_vp(t, aux):
+    """(ctx -> (E, pot)) for one term, or None if it has no fused form
+    (IonIon has none and needs none)."""
+    if t is XuWangMa:
+        return _vp_xwm
+    pfn = _partial_vp(t)
+    if pfn is not None:
+        return pfn
+    owner = _owner(t)
+    cls = type(owner).__name__
+    if cls == "YukawaGGA" and (owner._preset is None or not owner.spline):
+        return None
+    if cls in _INSTANCE_DISPATCH:
+        return lambda ctx: _INSTANCE_DISPATCH[cls](ctx, owner, aux)
+    return _DISPATCH.get(term_name(t))
 
 
 def supported_terms(terms):
-    """True iff every density-dependent term has a fused analytic form in
-    this package."""
-    return all(term_name(t) == "IonIon" or term_name(t) in _DISPATCH
-               or _owner_class(t) in _INSTANCE_DISPATCH for t in terms)
+    """True iff every density-dependent term has a fused analytic form:
+    the functionals of ``_DISPATCH`` and ``_INSTANCE_DISPATCH`` (YukawaGGA
+    only for its tagged presets with spline=True), the bare XuWangMa and
+    the keyword partials of KGAP and XuWangMa."""
+    return all(term_name(t) == "IonIon" or _term_vp(t, None) is not None
+               for t in terms)
 
 
-def value_and_potential(terms, box_vecs, den, v_ext, N_elec=None):
+def value_and_potential(terms, box_vecs, den, v_ext, N_elec=None, aux=None):
     """Total (E, dE/dn) over the term list in ONE fused forward sweep.
 
-    Raises KeyError for a term without a fused form (gate with
+    ``aux``: the per-term list of ``System._collect_term_aux`` (the
+    kernel slabs the ladder terms' ``prepare`` hoisted), or None.  Raises
+    KeyError for a term without a fused form (gate with
     :func:`supported_terms`)."""
     ctx = SpectralCtx(box_vecs, den, v_ext, N_elec=N_elec)
     fns = []
-    for t in terms:
+    for i, t in enumerate(terms):
         nm = term_name(t)
         if nm == "IonIon":
             continue
-        cls = _owner_class(t)
-        if cls in _INSTANCE_DISPATCH:
-            owner = getattr(t, "__self__", t)
-            fns.append(lambda c, fn=_INSTANCE_DISPATCH[cls], o=owner:
-                       fn(c, o))
-        elif nm in _DISPATCH:
-            fns.append(_DISPATCH[nm])
-        else:
+        fn = _term_vp(t, None if aux is None else aux[i])
+        if fn is None:
             raise KeyError(f"no fused analytic potential for term {nm!r}")
+        fns.append(fn)
     return _sum_vp(ctx, fns)

@@ -23,7 +23,7 @@ __all__ = [
     "inv3x3", "volume", "wavevecs", "imul", "qmean", "wmean", "safe_sqrt",
     "rfftn", "irfftn", "spectral_convolution", "spectral_resample", "grad_i",
     "laplacian", "grad_dot_grad", "reduced_gradient",
-    "reduced_gradient_squared", "reduced_laplacian",
+    "reduced_gradient_squared", "reduced_laplacian", "pencil_mode",
 ]
 
 
@@ -177,6 +177,14 @@ def spectral_convolution(kern, field, shape):
         from .spectral_conv import spectral_conv
         return spectral_conv(field, kern)
     return irfftn(kern * rfftn(field), shape)
+
+
+def pencil_mode(axis_name="grid"):
+    """The JAX package's pencil (multi-device) mode of the grid ops, under
+    which its field-dependent convolutions ride a batched all_to_all, is
+    not ported."""
+    raise NotImplementedError(
+        "pencil (multi-device) transforms are not ported yet: ROADMAP A11")
 
 
 def spectral_resample(field, new_shape):

@@ -320,18 +320,56 @@ class System:
     # energy assembly
     # ------------------------------------------------------------------
 
-    def _density_terms_energy(self, box_vecs, den, v_ext):
-        """Sum of all density-dependent terms (ion-ion excluded)."""
+    def _density_terms_energy(self, box_vecs, den, v_ext, aux=None,
+                              static=True):
+        """Sum of all density-dependent terms (ion-ion excluded).
+
+        The ladder terms (HC, revHC, YukawaGGA) take the ladder their
+        ``prepare`` cached (``forward_static``) unless ``static=False``
+        (the stored energy: a direct evaluation, which sizes the ladder
+        from the density), as the JAX package does in its traced and its
+        eager calls.  ``aux``: the per-term list of ``_collect_term_aux``
+        (hoisted kernel slabs), for the density optimizer paths only; the
+        slabs depend on the cell, so the paths that differentiate with
+        respect to it (stress, geometry) must not pass them."""
         E = torch.zeros((), dtype=den.dtype, device=den.device)
-        for f in self._terms:
+        for i, f in enumerate(self._terms):
             nm = term_name(f)
-            if nm == "IonElectron":
+            owner = getattr(f, "__self__", f)
+            a = aux[i] if aux is not None else None
+            if a is not None:
+                E = E + owner.apply_aux(a, box_vecs, den)
+            elif nm == "IonElectron":
                 E = E + f(box_vecs, den, v_ext)
-            elif nm != "IonIon":
+            elif nm == "IonIon":
+                continue
+            elif static and hasattr(owner, "forward_static"):
+                E = E + owner.forward_static(box_vecs, den)
+            else:
                 E = E + f(box_vecs, den)
         return E
 
-    def _chi_energy(self, chi, box_vecs, v_ext, N_elec):
+    def _collect_term_aux(self):
+        """The per-cell arrays of the terms with ``aux_arrays()`` (filled
+        by their ``prepare``), one entry per term; None if no term has
+        any."""
+        aux = [getattr(getattr(f, "__self__", f), "aux_arrays",
+                       lambda: None)() for f in self._terms]
+        return aux if any(a is not None for a in aux) else None
+
+    def _prepare_terms(self):
+        """Terms with per-cell prepared state (``prepare()``)."""
+        return [getattr(f, "__self__", f) for f in self._terms
+                if callable(getattr(getattr(f, "__self__", f), "prepare",
+                                    None))]
+
+    def _prepare_dynamic_kernels(self):
+        """Let the terms with data-dependent kernels (HC, revHC, Yukawa,
+        MGP) cache their ladders and tables from the stored density."""
+        for owner in self._prepare_terms():
+            owner.prepare(self._box_vecs, self._den)
+
+    def _chi_energy(self, chi, box_vecs, v_ext, N_elec, aux=None):
         """Energy as a function of the unconstrained sqrt-density variable,
         n = N_e chi^2 / (int chi^2).  f32 floors the density at 1e-10 of
         the mean (renormalised), so negative powers stay finite."""
@@ -342,14 +380,14 @@ class System:
         if chi.dtype == torch.float32:
             c = 1e-10 * N_elec / vol
             den = (den + c) * (N_elec / (N_elec + c * vol))
-        return self._density_terms_energy(box_vecs, den, v_ext)
+        return self._density_terms_energy(box_vecs, den, v_ext, aux=aux)
 
-    def _chi_value_and_grad(self, chi, box_vecs, v_ext, N_elec):
+    def _chi_value_and_grad(self, chi, box_vecs, v_ext, N_elec, aux=None):
         """(E, dE/dchi) by autograd of ``_chi_energy``; the graph lives
         only inside this call."""
         with torch.enable_grad():
             x = chi.detach().requires_grad_(True)
-            E = self._chi_energy(x, box_vecs, v_ext, N_elec)
+            E = self._chi_energy(x, box_vecs, v_ext, N_elec, aux)
             (g,) = torch.autograd.grad(E, x)
         return E.detach(), g
 
@@ -369,13 +407,14 @@ class System:
         dEdchi = (N_elec / N_tilde) * 2.0 * x * (dEdn - mu)
         return E, (dEdchi * (vol / den.numel())).reshape(chi.shape)
 
-    def _dEdn(self, box_vecs, den, v_ext):
+    def _dEdn(self, box_vecs, den, v_ext, aux=None):
         """delta E / delta n of the density terms (per unit volume)."""
         return get_functional_derivative(
             box_vecs, den,
-            lambda b, n: self._density_terms_energy(b, n, v_ext))
+            lambda b, n: self._density_terms_energy(b, n, v_ext, aux=aux))
 
-    def _chi_value_and_grad_analytic(self, chi, box_vecs, v_ext, N_elec):
+    def _chi_value_and_grad_analytic(self, chi, box_vecs, v_ext, N_elec,
+                                     aux=None):
         """(E, dE/dchi) via the fused analytic potentials
         (``models/potentials.py``): one forward sweep, no autograd graph.
         Equal to autograd of ``_chi_energy`` at f64."""
@@ -393,7 +432,7 @@ class System:
             s = 1.0
             den = den_pre
         E, pot = value_and_potential(self._terms, box_vecs, den, v_ext,
-                                     N_elec=N_elec)
+                                     N_elec=N_elec, aux=aux)
         quad_w = vol / den.numel()
         # chain through the chi-parameterisation (+ f32 floor scale s):
         # dE/dchi_j = s (N/N~) 2 chi_j w (pot_j - mu),
@@ -402,7 +441,7 @@ class System:
         dEdchi = s * (N_elec / N_tilde) * 2.0 * chi * (pot - mu) * quad_w
         return E, dEdchi.reshape(shape_in)
 
-    def _exact_precond_kernel(self, box_vecs, N_elec):
+    def _exact_precond_kernel(self, box_vecs, N_elec, aux=None):
         """The exact uniform-density inverse-Hessian diagonal M(k) on the
         rfftn half-spectrum.
 
@@ -410,7 +449,8 @@ class System:
         translation invariant, hence diagonal in k-space: ONE Hessian-vector
         product against a delta perturbation (``torch.func.jvp`` over
         ``torch.func.grad``) gives the kernel row, and its FFT the diagonal
-        F(k).  Runs in the dtype of ``box_vecs``."""
+        F(k).  Runs in the dtype of ``box_vecs``; ``aux`` as in
+        ``_density_terms_energy``."""
         shape = self._shape
         dt, dev = box_vecs.dtype, box_vecs.device
         vol = volume(box_vecs)
@@ -422,7 +462,8 @@ class System:
         v_zero = torch.zeros(shape, dtype=dt, device=dev)  # linear term
 
         grad_E = torch.func.grad(
-            lambda den: self._density_terms_energy(box_vecs, den, v_zero))
+            lambda den: self._density_terms_energy(box_vecs, den, v_zero,
+                                                   aux=aux))
         _, hvp = torch.func.jvp(grad_E, (n0_field,), (delta,))
         F = rfftn(hvp).real.to(dt).contiguous()
         # positive floor: k=0 carries no Hartree and is projected out by the
@@ -431,14 +472,16 @@ class System:
         # a constant of the solver: no graph to a trainable term's params
         return (1.0 / torch.maximum(F, floor)).detach()
 
-    def _precond_kernel(self, box_vecs, N_elec):
+    def _precond_kernel(self, box_vecs, N_elec, aux=None):
         """Exact preconditioner kernel M(k), full-grid HVP.  Grids above
-        256^3 need the radially sampled surrogate, which is not ported."""
-        if int(np.prod(self._shape)) > 256 ** 3:
+        256^3 need the radially sampled surrogate, which is not ported;
+        with a prepared term (whose slabs belong to this grid's ladder)
+        they keep the full-grid HVP, as in the JAX package."""
+        if int(np.prod(self._shape)) > 256 ** 3 and not self._prepare_terms():
             raise NotImplementedError(
                 "the radial preconditioner for grids above 256^3 is not "
                 "ported yet: ROADMAP A5")
-        return self._exact_precond_kernel(box_vecs, N_elec)
+        return self._exact_precond_kernel(box_vecs, N_elec, aux)
 
     def _apply_spectral(self, M):
         shape = self._shape
@@ -491,7 +534,8 @@ class System:
         """Total energy of the stored state: density terms, plus ion-ion
         unless ``for_den_opt``.  No graph: a trainable term's parameters
         would otherwise tie one to the stored energy."""
-        E = self._density_terms_energy(self._box_vecs, self._den, self._v_ext)
+        E = self._density_terms_energy(self._box_vecs, self._den, self._v_ext,
+                                       static=False)
         if self._has_ion_ion() and not for_den_opt:
             E = E + self._ion_ion_energy()
         return E
@@ -551,10 +595,10 @@ class System:
         if jit_loop and analytic:
             from .models.potentials import supported_terms
             if not supported_terms(self._terms):
-                raise NotImplementedError(
-                    "analytic=True needs a fused analytic potential for "
-                    "every term; YukawaGGA, WGC99, Foley-Madden, HC, revHC, "
-                    "KGAP, XWM and MGP are not ported yet: ROADMAP A7")
+                raise ValueError(
+                    "analytic=True requires every term to have a fused "
+                    "analytic potential (models/potentials.py); use the "
+                    "autodiff path for this term set.")
 
         if from_uniform:
             self._den = self._uniform_density()
@@ -566,27 +610,32 @@ class System:
             if current_E < uniform_E:
                 self._den = current_den
 
+        self._prepare_dynamic_kernels()
         dt = self._dtype
         box = self._box_vecs.to(dt)
         v_ext = self._v_ext.to(dt)
         N_elec = float(self._N_elec)
         chi0 = safe_sqrt(self._den).to(dt)
+        aux = self._collect_term_aux()
+        if aux is not None:   # cast once to the working dtype
+            aux = [None if a is None else {k: v.to(dt) for k, v in a.items()}
+                   for a in aux]
         if potentials is None:
             vg_auto = lambda x: self._chi_value_and_grad(x, box, v_ext,
-                                                         N_elec)
+                                                         N_elec, aux)
         else:
             vg_auto = lambda x: self._chi_value_and_grad_potentials(
                 x, box, v_ext, N_elec, potentials)
         # the host loop's TPGD step and the potentials path take no
         # preconditioner
-        aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec))
+        aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec, aux))
                if precondition and potentials is None
                and (jit_loop or n_method == "LBFGS") else None)
 
         if jit_loop:
             vg = vg_auto if not analytic else (
                 lambda x: self._chi_value_and_grad_analytic(x, box, v_ext,
-                                                            N_elec))
+                                                            N_elec, aux))
             minimize = (solvers.tpgd_minimize if n_method == "TPGD"
                         else functools.partial(solvers.lbfgs_minimize,
                                                block=block))
@@ -594,13 +643,20 @@ class System:
                 vg, chi0, lr=n_step_size, ntol=ntol,
                 conv_count=n_conv_cond_count, max_iter=round(n_maxiter),
                 f_scale=EV_PER_HA, skip_iters=skip_iters, apply_H0=aH0,
-                stop_fn=self._make_stop_fn(conv_target, box, v_ext, N_elec))
+                stop_fn=self._make_stop_fn(conv_target, box, v_ext, N_elec,
+                                           aux))
         else:
             state, n_it, conv = self._host_loop(
                 vg_auto, chi0, n_method, n_step_size, aH0, ntol,
                 n_conv_cond_count, round(n_maxiter), conv_target, n_verbose)
         self._set_den_from_chi(state.x)
         E = state.f.to(_F64)
+        if self._prepare_terms():
+            # the solver's energy used the ladder prepared from the start
+            # density; the stored energy sizes it from this density, as
+            # the JAX package's does
+            with torch.no_grad():
+                E = self._compute_energy(for_den_opt=True).to(_F64)
         if self._has_ion_ion():
             # cached by the last energy of the current cell and ions
             if self._Eion_cache is None:
@@ -655,9 +711,10 @@ class System:
                 break
         return state, it, conv_counter == conv_count
 
-    def _make_stop_fn(self, conv_target, box_vecs, v_ext, N_elec):
+    def _make_stop_fn(self, conv_target, box_vecs, v_ext, N_elec, aux=None):
         """Convergence measure of the ``jit_loop`` solvers, one evaluation
-        per outer step; ``None`` for 'dE' (the solvers' own |dE|)."""
+        per outer step; ``None`` for 'dE' (the solvers' own |dE|).  The
+        'euler' measure takes the term-aux list."""
         if conv_target == "dE":
             return None
         if conv_target == "dEdchi":
@@ -670,7 +727,7 @@ class System:
             chi = st.x.reshape(self._shape)
             vol = volume(box_vecs)
             den = (N_elec / (wmean(chi * chi) * vol)) * chi * chi
-            dEdn = self._dEdn(box_vecs, den, v_ext)
+            dEdn = self._dEdn(box_vecs, den, v_ext, aux)
             mu = wmean(dEdn * den) * vol / N_elec
             return torch.max(torch.abs(mu - dEdn))
         return stop_fn

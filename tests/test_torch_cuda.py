@@ -2,7 +2,8 @@
 spectral-convolution and Stockham kernels against their plain torch.fft
 versions on the card, their wrappers' checks and launch counts, the
 density paths, the fused potentials of every ported functional and the
-geometry relaxation on the card against the same calls on the CPU.
+geometry relaxation on the card against the same calls on the CPU, and
+the fused sweeps of the functionals with ladders and kernel tables.
 
 They skip without a CUDA device.  This file imports no JAX, so on a GPU host
 without JAX run it without the suite's JAX conftest:
@@ -328,3 +329,60 @@ def test_geometry_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for (fc, bc), (fg, bg) in zip(log_c, log_g):
         assert np.max(np.abs(fg - fc)) <= 1e-9 * np.max(np.abs(fc))
         assert np.max(np.abs(bg - bc)) <= 1e-9 * np.max(np.abs(bc))
+
+
+# spectral_conv calls of one fused sweep: the vW Laplacian plus the term's
+# fixed-kernel convolutions (the ladder terms convolve through torch.fft)
+NONLOCAL = {"HuangCarter": 1, "RevisedHuangCarter": 1, "YukawaGGA-yuk1": 1,
+            "YukawaGGA-yuk4": 1, "MiGenovaPavanello": 2,
+            "WangGovindCarter99": 13, "FoleyMadden": 2, "KGAP": 3,
+            "XuWangMa": 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (33, 33, 33)], ids=str)
+@pytest.mark.parametrize("name", list(NONLOCAL))
+def test_nonlocal_potential_on_the_card(cuda, monkeypatch, name, shape,
+                                        dtype):
+    """Each non-local functional's fused sweep on the card against the f64
+    sweep on the CPU (f64 rel 1e-12; f32 rel 5e-6 for E and 5e-5 of max
+    |dE/dn|), with trainable parameters that require grad: every call
+    reaches spectral_conv with a constant kernel, and the term's own
+    convolutions launch it.  The terms are chip_smoke.py's."""
+    from chip_smoke import nonlocal_term
+    from professad_tpu_torch.models import potentials as tpot
+    rng = np.random.default_rng(7)
+    box = 7.0 * np.eye(3) + 0.2 * rng.standard_normal((3, 3))
+    den = 0.01 + 0.02 * rng.random(shape)
+    results = []
+    for dev, dt in ((torch.device("cpu"), torch.float64), (cuda, dtype)):
+        term = nonlocal_term(name)
+        owner = getattr(term, "__self__", term)
+        z = dict(dtype=dt, device=dev)
+        b, d = torch.tensor(box, **z), torch.tensor(den, **z)
+        if isinstance(owner, torch.nn.Module):
+            owner.to(dev).param_grad(True)
+            if hasattr(owner, "prepare"):
+                owner.prepare(b, d)
+        seen = []
+        kernel = sc.spectral_conv
+
+        def watched(x, K):
+            seen.append(K.requires_grad)
+            return kernel(x, K)
+        monkeypatch.setattr(sc, "spectral_conv", watched)
+        before = sc.launches
+        results.append(tpot.value_and_potential(
+            [term], b, d, torch.zeros(shape, **z)))
+        torch.cuda.synchronize()
+        monkeypatch.setattr(sc, "spectral_conv", kernel)
+        assert seen and not any(seen)
+        launched = sc.launches - before
+    assert launched == NONLOCAL[name]
+    (E_ref, p_ref), (E, p) = results
+    tol_E, tol_p = (1e-12, 1e-12) if dtype == torch.float64 else (5e-6, 5e-5)
+    assert p.dtype == dtype and p.device == cuda
+    assert abs(float(E) - float(E_ref)) <= tol_E * abs(float(E_ref))
+    assert _rel(p.double().cpu(), p_ref) <= tol_p

@@ -85,15 +85,26 @@ def test_value_and_potential_matches_jax(state):
 
 
 def test_unported_terms_rejected(state):
+    """A closure-wrapped XuWangMa carries a kappa the dispatcher cannot
+    read: it is unsupported, as in the JAX package
+    (``tests/test_potentials.py``), rather than silently wrong."""
+    from professad_tpu.models import XuWangMa as jXuWangMa
+    from professad_tpu_torch.models import XuWangMa
     box, den, vext = state
 
-    def XuWangMa(box_vecs, den):  # a JAX-package term the port lacks
-        raise AssertionError("never evaluated")
+    def wrapped(box_vecs, den):
+        return XuWangMa(box_vecs, den, 0.01)
+    wrapped.__name__ = "XuWangMa"
 
-    assert tpot.supported_terms(T_TERMS)
-    assert not tpot.supported_terms(T_TERMS + [XuWangMa])
+    def jwrapped(box_vecs, den):
+        return jXuWangMa(box_vecs, den, 0.01)
+    jwrapped.__name__ = "XuWangMa"
+
+    assert tpot.supported_terms(T_TERMS + [XuWangMa])
+    assert not tpot.supported_terms(T_TERMS + [wrapped])
+    assert not jpot.supported_terms(J_TERMS + [jwrapped])
     with pytest.raises(KeyError):
-        tpot.value_and_potential([XuWangMa], torch.tensor(box),
+        tpot.value_and_potential([wrapped], torch.tensor(box),
                                  torch.tensor(den), torch.tensor(vext))
 
 
