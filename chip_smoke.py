@@ -66,7 +66,28 @@ Phases (any failure exits non-zero):
      1e-10; (b) at the 128^3 ground states of MGP, WGC99, FM, KGAP and XWM,
      the fused sweep with the kernel against the same sweep with its plain
      version, f32 rel 5e-6, f64 rel 1e-12; (c) HC |E32 - E64| < 2e-5
-     eV/atom.
+     eV/atom.  For HC and revHC it prints the xi range at the converged
+     density beside the prepared ladder's.
+ 12. second derivatives through the ground state, spectral_conv's count
+     reset just before the getters and read just after: the main path's
+     cell at 128^3 f64 (TPGD to |dE| < 1e-10 eV); P, H, K, C11, C12, C44,
+     Phi[0] with each getter's seconds, CG solves, iterations, residual,
+     launches and peak memory; K against central differences of
+     re-optimized energies at V(1 +- 4e-3), C11 and C12 against those of
+     re-optimized stresses under +-4e-3 x-strain (2%), cubic symmetry
+     1e-3, P = -tr(sigma)/3 1e-6, Phi[0, 1][:, 0] against differences of
+     re-optimized forces, ion 1 moved +-1e-3 bohr (atol 2e-5 Ha/bohr^2),
+     the CG preconditioner applied by the kernel against its plain version
+     on a random field (rtol 1e-12), and the K solve's CG iterations with
+     each (within 1);
+ 13. PME: the same cell at 128^3 f64 with pme_order=20 against the exact
+     structure factor (E, density, forces, stress at np.allclose's
+     defaults), and both structure factors' times;
+ 14. the radial preconditioner kernel at 128^3 and 320^3 (f64): against
+     the same function on the CPU, against the full-grid HVP, and through
+     spectral_conv against its plain version at 320^3 (f32 and f64); then
+     the 320^3 main path in f32 and f64, which must pick it and converge
+     (phase_radial says what is bounded).
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -413,9 +434,10 @@ FCC = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
 
 
 def build_bench_system(shape, dtype, device, cell=4.050 * np.eye(3),
-                       frac=FCC, kinetic=None):
+                       frac=FCC, kinetic=None, pme_order=None):
     """The benchmark configuration: 4-atom cubic fcc Al, PBE and the
-    kinetic term ``kinetic`` (WT by default)."""
+    kinetic term ``kinetic`` (WT by default); ``pme_order`` selects the
+    PME structure factor."""
     from professad_tpu_torch import System
     from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
                                             WangTeter, PerdewBurkeErnzerhof)
@@ -425,7 +447,7 @@ def build_bench_system(shape, dtype, device, cell=4.050 * np.eye(3),
              PerdewBurkeErnzerhof]
     return System(cell, shape, [["Al", pot, frac]], terms,
                   units="a", coord_type="fractional", device=device,
-                  dtype=dtype)
+                  dtype=dtype, pme_order=pme_order)
 
 
 def optimize(system):
@@ -776,6 +798,14 @@ def _nonlocal_run(name, term, dtype, device, n, sync):
     t = time.perf_counter() - t0
     launches = sc.launches - before
     ladder = getattr(owner, "xi_sparse", None)
+    if ladder is not None and "HuangCarter" in name:
+        # does the ladder prepared from the start density cover xi at the
+        # converged density?
+        with torch.no_grad():
+            xis = owner._xis(owner.params, s._box_vecs, s.density())
+        log(f"[nonlocal] {name} {n}^3 {str(dtype)[6:]}: xi at the converged "
+            f"density [{float(xis.min()):.6g}, {float(xis.max()):.6g}], "
+            f"prepared ladder [{ladder[0]:.6g}, {ladder[-1]:.6g}]")
     r = dict(name=name, dtype=str(dtype)[6:], n_it=n_it, conv=bool(conv),
              t=t, launches=launches, E=s.energy("eV"),
              L=None if ladder is None else len(ladder),
@@ -978,6 +1008,302 @@ def phase_golden(device):
                                      f"{path})")
 
 
+SECOND_NTOL = 1e-10
+
+
+def _second_optimize(s, ntol=SECOND_NTOL):
+    n_it, conv = s.optimize_density(
+        ntol=ntol, n_method="TPGD", analytic=True, precondition=True,
+        n_step_size=1.0, skip_iters=2, jit_loop=True, n_maxiter=5000)
+    if not conv:
+        raise AssertionError("[second] density optimization did not converge")
+    return n_it
+
+
+def _getter(tag, fn, device):
+    """Run one getter; print its seconds, CG solves, iterations per solve,
+    largest post-solve residual, spectral_conv launches and peak memory."""
+    import torch
+    from professad_tpu_torch.ops import implicit
+    from professad_tpu_torch.ops import spectral_conv as sc
+    implicit.solves.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = sc.launches
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    its = [k for k, _ in implicit.solves]
+    res = max([r for _, r in implicit.solves if r is not None], default=0.0)
+    log(f"[second] {tag}: {t:.3f} s, CG solves {len(its)}, iterations "
+        f"{its}, max post-solve residual {res:.3e}, spectral_conv launches "
+        f"{sc.launches - before}, max memory allocated "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB")
+    return out, dict(t=t, solves=len(its), iters=its, residual=res)
+
+
+def phase_second(device, n=128):
+    """Second derivatives through the ground state of the main path's cell
+    (n^3, f64, TPGD to |dE| < 1e-10 eV): P, H, K, C11, C12, C44 and
+    Phi[0], each against finite differences of re-optimized states (K and
+    C 2%, Phi atol 2e-5 Ha/bohr^2), cubic symmetry 1e-3, P = -tr(sigma)/3
+    1e-6; the CG preconditioner applied by the kernel against its plain
+    version on a random field (rtol 1e-12) and the K solve's CG iterations
+    with each (within 1).  Returns the kernel's launches."""
+    import torch
+    from professad_tpu_torch.ops import implicit
+    from professad_tpu_torch.ops import spectral_conv as sc
+    s = build_bench_system((n, n, n), torch.float64, device)
+    GPA = s.GPa_per_atomic
+    t0 = time.perf_counter()
+    n_it = _second_optimize(s)
+    log(f"[second] {n}^3 f64 ground state: {n_it} iterations, "
+        f"{time.perf_counter() - t0:.3f} s, E {s.energy('eV'):.9f} eV")
+    sc.launches = 0
+    P, _ = _getter("pressure", lambda: s.pressure("GPa"), device)
+    H, _ = _getter("enthalpy", lambda: s.enthalpy("eV"), device)
+    K, kst = _getter("bulk_modulus", lambda: s.bulk_modulus("GPa"), device)
+    C, cst = _getter("elastic_constants",
+                     lambda: s.elastic_constants("GPa").cpu().numpy(), device)
+    FC, fst = _getter("force_constants [0]",
+                      lambda: s.force_constants([0], "Ha/b2").cpu().numpy(),
+                      device)
+    launches = sc.launches
+    C11, C12, C44 = C[0, 0], C[0, 1], C[3, 3]
+    FCa = FC * s.eV_per_Ha / s.A_per_b ** 2
+    log(f"[second] P {P:.9f} GPa, H {H:.9f} eV, K {K:.6f} GPa, C11 "
+        f"{C11:.6f}, C12 {C12:.6f}, C44 {C44:.6f} GPa, Phi[0, 0] diag "
+        f"{np.diag(FCa[0, 0])} eV/A^2; spectral_conv launches {launches}")
+    failed = []
+    sigma = s.stress("GPa").cpu().numpy()
+    p_sig = -np.trace(sigma) / 3.0
+    if not abs(P - p_sig) <= 1e-6 * abs(p_sig):
+        failed.append(f"P {P} vs -tr(sigma)/3 {p_sig}")
+    sym = max(abs(C[0, 0] - C[1, 1]), abs(C[0, 0] - C[2, 2])) / abs(C11)
+    sym = max(sym, abs(C[0, 1] - C[0, 2]) / abs(C12),
+              abs(C[3, 3] - C[4, 4]) / abs(C44))
+    if not sym <= 1e-3:
+        failed.append(f"cubic symmetry {sym:.3e}")
+    # the kernel at its new site: one CG preconditioner application against
+    # its plain version, and the CG iterations of the K solve with each
+    M = s._exact_precond_kernel(s._box_vecs, s._N_elec)
+    q = torch.randn((n, n, n), dtype=torch.float64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    a = s._cg_precond()(q)
+    b = sc.spectral_conv_reference(q, M)
+    dq = float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+    energy = s._volume_energy_fn()
+    vol0 = torch.tensor(s.volume("b3"), dtype=torch.float64, device=device)
+    implicit.solves.clear()
+    _, Hp = implicit.ground_state_hessian(
+        energy, s._gs_chi(), vol0,
+        precond=lambda v: sc.spectral_conv_reference(v, M))
+    its_plain = [k for k, _ in implicit.solves]
+    K_plain = float(vol0 * Hp[0, 0]) * GPA
+    log(f"[second] CG preconditioner by the kernel vs its plain version: "
+        f"max rel diff {dq:.3e} (bound 1e-12); K solve CG iterations "
+        f"{kst['iters']} with the kernel, {its_plain} with the plain "
+        f"version (bound: within 1); K {K_plain:.9f} GPa with the plain "
+        f"version, rel diff {abs(K - K_plain) / abs(K_plain):.3e}")
+    if not dq <= 1e-12:
+        failed.append(f"CG preconditioner kernel vs plain {dq:.3e}")
+    if len(its_plain) != len(kst["iters"]) or any(
+            abs(x - y) > 1 for x, y in zip(its_plain, kst["iters"])):
+        failed.append(f"CG iterations {kst['iters']} vs plain {its_plain}")
+    # finite differences of re-optimized states
+    t0 = time.perf_counter()
+    eps = 4e-3
+    lv0 = s.lattice_vectors("a").cpu().numpy()
+    V0 = s.volume("b3")
+    den0 = s.density().clone()
+
+    def reopt(lv=None, R=None):
+        s2 = build_bench_system((n, n, n), torch.float64, device,
+                                cell=lv0 if lv is None else lv)
+        if R is not None:
+            s2.place_ions(R, units="b")
+        s2.set_density(den0 * V0 / s2.volume("b3"))
+        _second_optimize(s2)
+        return s2
+    es = [reopt(lv0 * f ** (1.0 / 3.0)).energy()
+          for f in (1 - eps, 1 + eps)]
+    E0 = s.energy()
+    K_fd = V0 * (es[0] - 2 * E0 + es[1]) / (V0 * eps) ** 2 * GPA
+    ss = []
+    for f in (1 - eps, 1 + eps):
+        strain = np.eye(3)
+        strain[0, 0] = f
+        ss.append(reopt(lv0 @ strain.T).stress("GPa").cpu().numpy())
+    dsig = (ss[1] - ss[0]) / (2 * eps)
+    R0 = s.cartesian_ionic_coordinates("b").cpu().numpy()
+    Fs = []
+    for d in (-1e-3, 1e-3):
+        R = R0.copy()
+        R[1, 0] += d
+        Fs.append(reopt(R=R).forces("Ha/b").cpu().numpy())
+    dF = -(Fs[1][0] - Fs[0][0]) / 2e-3
+    log(f"[second] finite differences ({time.perf_counter() - t0:.2f} s): "
+        f"K {K_fd:.6f} GPa, C11 {dsig[0, 0]:.6f}, C12 {dsig[1, 1]:.6f} "
+        f"GPa, -dF_0/dR_1x {dF} Ha/b^2 vs Phi[0, 1][:, 0] {FC[0, 1][:, 0]}")
+    for name, a, b in (("K", K, K_fd), ("C11", C11, dsig[0, 0]),
+                       ("C12", C12, dsig[1, 1])):
+        if not abs(a - b) <= 2e-2 * abs(b):
+            failed.append(f"{name} {a} vs finite differences {b}")
+    if not np.allclose(FC[0, 1][:, 0], dF, rtol=0, atol=2e-5):
+        failed.append(f"Phi[0, 1][:, 0] {FC[0, 1][:, 0]} vs {dF}")
+    if launches == 0:
+        failed.append("no spectral_conv launch in the getters")
+    if failed:
+        raise AssertionError(f"[second] {failed}")
+    return launches, dict(K=kst, C=cst, FC=fst)
+
+
+def phase_pme(device, n=128, order=20):
+    """The main path's cell at n^3 f64 with pme_order=20 against the exact
+    structure factor: E, density, forces and stress at np.allclose's
+    defaults (tests/test_particle_mesh_ewald.py::test4); the structure
+    factor's time by both routes."""
+    import torch
+    from professad_tpu_torch.models import ions
+    from professad_tpu_torch.ops import spectral_conv as sc
+    out = {}
+    sc.launches = 0
+    for tag, po in (("exact", None), ("pme", order)):
+        s = build_bench_system((n, n, n), torch.float64, device,
+                               pme_order=po)
+        _second_optimize(s, ntol=1e-9)
+        out[tag] = (s.energy("eV"), s.density().cpu().numpy(),
+                    s.forces().cpu().numpy(), s.stress().cpu().numpy())
+    launches = sc.launches
+    box = s._box_vecs
+    cart = s.cartesian_ionic_coordinates("b")
+    shape = (n, n, n)
+    t_ex = cuda_time_ms(lambda: ions.structure_factor(box, shape, cart), 5)
+    t_pme = cuda_time_ms(lambda: ions.structure_factor_spline(
+        box, shape, cart, order), 5)
+    ok = [np.allclose(a, b) for a, b in zip(out["exact"], out["pme"])]
+    log(f"[pme] {n}^3 f64, order {order}: E {out['pme'][0]:.9f} vs exact "
+        f"{out['exact'][0]:.9f} eV; allclose E/density/forces/stress {ok}; "
+        f"structure factor exact {t_ex:.3f} ms, PME {t_pme:.3f} ms; "
+        f"spectral_conv launches {launches}")
+    if not all(ok) or launches == 0:
+        raise AssertionError("[pme] PME disagrees with the exact path")
+    return launches
+
+
+def phase_radial(device, sync, E128, n=320):
+    """The radial preconditioner kernel at 128^3 and n^3, on the ray of
+    ``_precond_kernel`` (n1d = max(4096, 16 max(shape)), the JAX package's
+    rule), f64 on the card:
+    - equal to the same function on the CPU within 1e-10 of its largest
+      value (M spans ~7e4, so rounding in the small F at high |k| reaches
+      3e-11 at 320^3);
+    - its ratio to the full-grid HVP kernel, divided by its median: printed
+      (the JAX package's own kernel is flat only to 9.4e-3 at 128^3,
+      ROADMAP C4); at 128^3 on a ray of 16384 points it must be flat within
+      1e-5, the bound of tests/test_system_utils.py;
+    - the time and peak memory of each kernel;
+    - spectral_conv with the radial M at n^3 against its plain version on a
+      random field: rel 1e-12 in f64, 5e-6 in f32.
+    Then the n^3 main path in f32 and f64, where _precond_kernel must pick
+    the radial kernel by itself: each must converge with |E_n - E_128| <
+    1e-3 eV/atom.  Returns the f32 main path's launches."""
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    failed = []
+    cpu = torch.device("cpu")
+    for m in (128, n):
+        s = build_bench_system((m, m, m), torch.float64, device)
+        Ne = float(s._N_elec)
+        ray = max(4096, 16 * m)
+        rays = [ray] + ([16384] if m == 128 else [])
+        kern = {}
+        for tag, r, fn in (
+                [("full HVP", None, lambda r: s._exact_precond_kernel(
+                    s._box_vecs, Ne))]
+                + [("radial", r, lambda r: s._exact_precond_kernel_radial(
+                    s._box_vecs, Ne, n1d=r)) for r in rays]):
+            fn(r)
+            sync()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            kern[r] = fn(r)
+            sync()
+            mib = torch.cuda.max_memory_allocated(device) / 2**20
+            log(f"[radial] {m}^3 f64 {tag} kernel"
+                f"{'' if r is None else f' (n1d {r})'}: "
+                f"{1e3 * (time.perf_counter() - t0):.2f} ms, max memory "
+                f"allocated {mib:.1f} MiB")
+        for r in rays:
+            q = (kern[None] / kern[r]).cpu().numpy()
+            flat = float(np.max(np.abs(q / np.median(q) - 1.0)))
+            log(f"[radial] {m}^3, n1d {r}: max |ratio / median - 1| "
+                f"{flat:.3e}" + (" (bound 1e-5)" if r == 16384 else ""))
+            if r == 16384 and not flat < 1e-5:
+                failed.append(f"{m}^3 n1d {r} ratio not flat: {flat:.3e}")
+        M = kern[ray]
+        del kern
+        sh = build_bench_system((m, m, m), torch.float64, cpu)
+        Mc = sh._exact_precond_kernel_radial(sh._box_vecs, Ne, n1d=ray)
+        d = float(torch.max(torch.abs(M.cpu() - Mc)) / torch.max(Mc))
+        log(f"[radial] {m}^3 radial kernel (n1d {ray}), card vs CPU: max "
+            f"rel diff {d:.3e} (bound 1e-10)")
+        if not d <= 1e-10:
+            failed.append(f"{m}^3 radial kernel card vs CPU {d:.3e}")
+        del sh, Mc
+        if m == n:
+            g = torch.Generator(device=device).manual_seed(2)
+            for dt, tol in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
+                x = torch.randn((m, m, m), dtype=torch.float64, device=device,
+                                generator=g).to(dt)
+                a = sc.spectral_conv(x, M.to(dt))
+                b = sc.spectral_conv_reference(x, M.to(dt))
+                e = float(torch.max(torch.abs(a - b))
+                          / torch.max(torch.abs(b)))
+                log(f"[radial] spectral_conv with the radial M at {m}^3 "
+                    f"{str(dt)[6:]}: max rel diff to its plain version "
+                    f"{e:.3e} (bound {tol:g})")
+                if not e <= tol:
+                    failed.append(f"spectral_conv {m}^3 {dt}: {e:.3e}")
+        del s, M
+    launches = 0
+    for dt in (torch.float32, torch.float64):
+        s = build_bench_system((n, n, n), dt, device)
+        picked = []
+        radial = s._exact_precond_kernel_radial
+
+        def spy(*a, **k):
+            picked.append(k.get("n1d"))
+            return radial(*a, **k)
+        s._exact_precond_kernel_radial = spy
+        sync()
+        sc.launches = 0
+        t0 = time.perf_counter()
+        n_it, conv = s.optimize_density(
+            ntol=NTOL, n_method="TPGD", analytic=True, precondition=True,
+            n_step_size=1.0, skip_iters=2, jit_loop=True, from_uniform=True,
+            n_maxiter=400)
+        sync()
+        t = time.perf_counter() - t0
+        E = s.energy("eV") / 4
+        d = abs(E - E128 / 4)
+        log(f"[radial] {n}^3 {str(dt)[6:]} main path: radial kernel picked "
+            f"{picked} (n1d), iterations {n_it}, converged {conv}, "
+            f"{t:.3f} s, E {E:.9f} eV/atom, |E_{n} - E_128| {d:.3e} eV/atom "
+            f"(bound 1e-3), spectral_conv launches {sc.launches}")
+        if dt == torch.float32:
+            launches = sc.launches
+        if not picked:
+            failed.append(f"{dt}: the radial kernel was not picked")
+        if not conv or not d < 1e-3 or sc.launches < 3 * n_it:
+            failed.append(f"the {n}^3 {dt} main path failed")
+        del s
+    if failed:
+        raise AssertionError(f"[radial] {failed}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1011,6 +1337,9 @@ def main():
     phase_fd_forces(device)
     geo_launches, _, _ = phase_geometry(device, sync)
     nl_launches, _ = phase_nonlocal(device, sync)
+    second_launches, _ = phase_second(device)
+    pme_launches = phase_pme(device)
+    radial_launches = phase_radial(device, sync, res["E"])
 
     abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
@@ -1025,6 +1354,8 @@ def main():
         "library_ms": lms, "lib_ms": lms,
         "geometry_launches": geo_launches,
         "nonlocal_launches": nl_launches,
+        "second_launches": second_launches, "pme_launches": pme_launches,
+        "radial_launches": radial_launches,
         "library_call": "irfftn(K * rfftn(x)): three calls",
         "graph_ms": graph[0], "plain_graph_ms": graph[1],
         "library_graph_ms": graph[2]}]

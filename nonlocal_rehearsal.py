@@ -24,7 +24,8 @@ iterations, optimize_density's default).  The JAX package runs through
 ``tests/test_f32_accuracy.py`` does for f32 (its public path has no f32 on
 the CPU).  For each run: the iterations, whether it converged, the energy
 per atom evaluated directly in f64 at the final density, and the Euler
-residual max |mu - dE/dn| there (Ha), on the ladder the run minimized on
+residual |mu - dE/dn| there (Ha), its maximum and its density-weighted
+mean int n |mu - dE/dn| / N, on the ladder the run minimized on
 (prepared from the uniform start) and on one prepared from the final
 density.  With both dtypes, also the f32 error of the term's fused sweep at
 the port's f64 end point in both packages.  ``--continue-f64`` continues
@@ -132,6 +133,17 @@ class Evaluator:
         self.s._prepare_dynamic_kernels()           # from the uniform start
         self.start = getattr(self.owner, "xi_sparse", None)
 
+    def _euler(self):
+        """The Euler residual |mu - dE/dn| (Ha): its maximum and its
+        density-weighted mean int n |mu - dE/dn| / N."""
+        import torch
+        s = self.s
+        dEdn = s.functional_derivative("density")
+        r = torch.abs(s.chemical_potential() - dEdn)
+        return (float(torch.max(r)),
+                float(torch.mean(s._den * r)) * s.volume("b3")
+                / float(s._N_elec))
+
     def __call__(self, den):
         import torch
         s = self.s
@@ -139,16 +151,16 @@ class Evaluator:
         res = []
         if self.start is not None:
             self.owner.xi_sparse = self.start
-            res.append(s.check_density_convergence("euler"))
+            res.append(self._euler())
         s._prepare_dynamic_kernels()
-        res.append(s.check_density_convergence("euler"))
+        res.append(self._euler())
         return s.energy("eV") / s.ion_count(), res
 
     def line(self, den):
         E, res = self(den)
-        return (f"E {E:.9f} eV/atom, Euler residual "
-                + " / ".join(f"{r:.3e}" for r in res)
-                + (" Ha (start ladder / own ladder)" if len(res) == 2
+        return (f"E {E:.9f} eV/atom, Euler residual max / density-weighted "
+                + " ; ".join(f"{m:.3e} / {w:.3e}" for m, w in res)
+                + (" Ha (start ladder ; own ladder)" if len(res) == 2
                    else " Ha"))
 
 

@@ -1,19 +1,26 @@
-"""Ion-related utilities: recpot pseudopotentials, the exact structure
-factor, lattice sums and the real-space ion-ion interaction.
+"""Ion-related utilities: recpot pseudopotentials, the exact and the
+particle-mesh Ewald (PME) structure factors, lattice sums and the
+real-space ion-ion interaction.
 
-PyTorch port of the subset of ``professad_tpu/models/ions.py`` on the
-density-optimization path.  The particle-mesh Ewald structure factor is not
-ported yet (``lattice_sum`` raises for ``order`` other than None).
+PyTorch port of ``professad_tpu/models/ions.py`` for one device.  The PME
+charge spread is one ``index_add`` over the whole (order^3 x ions)
+stencil; its backward (forces, stress) is a gather.  On CUDA an f64
+``index_add`` accumulates with atomics, so the charge grid varies at
+rounding level from run to run.  The JAX package's matrix-unit spread
+(``_spread_mxu``) is TPU-specific: every ``method`` runs the scatter here.
+The pencil spread of multi-device runs is not ported (ROADMAP A11).
 """
 
 import numpy as np
 import torch
 
-from ..ops.grid import wavevecs, volume, safe_sqrt
+from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn
 from ..utils.constants import RECPOT_BOHR, RECPOT_POT_CONV
 
 __all__ = ["read_recpot", "get_ion_charge", "structure_factor",
-           "lattice_sum", "neighbor_shifts", "ion_interaction_sum"]
+           "structure_factor_spline", "cardinal_b_spline_values",
+           "exponential_spline_b", "lattice_sum", "neighbor_shifts",
+           "ion_interaction_sum"]
 
 _MAX_PAIRS = 1 << 22  # pair terms per chunk of the ion-ion image sum
 
@@ -70,13 +77,89 @@ def structure_factor(box_vecs, shape, cart_ion_coords):
 
 def lattice_sum(box_vecs, shape, cart_ion_coords, f_tilde, order=None):
     """F(r) = irfftn(S(q) f~(q)) / vol with the unscaled inverse transform
-    (``norm="forward"``), exact structure factor."""
-    if order is not None:
-        raise NotImplementedError(
-            "particle-mesh Ewald (pme_order) is not ported yet: ROADMAP A8")
-    S = structure_factor(box_vecs, shape, cart_ion_coords)
+    (``norm="forward"``); S is the exact structure factor, or the PME one
+    of B-spline ``order`` (even, >= 2)."""
+    if order is None:
+        S = structure_factor(box_vecs, shape, cart_ion_coords)
+    else:
+        if not (order % 2 == 0 and order >= 2):
+            raise ValueError("PME requires an even order >= 2")
+        S = structure_factor_spline(box_vecs, shape, cart_ion_coords, order)
     return (torch.fft.irfftn(S * f_tilde, s=tuple(shape), norm="forward")
             / volume(box_vecs))
+
+
+def _expi(x):
+    return torch.complex(torch.cos(x), torch.sin(x))
+
+
+def cardinal_b_spline_values(x, order):
+    """[M_n(x + i) for i = 0..n-1] for x in [0, 1), stacked on a new
+    leading axis, by the recurrence M_n[i] = ((x+i) M_{n-1}[i] +
+    (n-x-i) M_{n-1}[i-1]) / (n-1)."""
+    if order < 2:
+        raise ValueError("Requires order n >= 2")
+    zeros = torch.zeros_like(x)
+    M = [x, 1.0 - x] + [zeros] * (order - 2)
+    for n in range(3, order + 1):
+        new = [None] * order
+        for i in range(n - 1, 0, -1):
+            new[i] = ((x + i) * M[i] + (n - x - i) * M[i - 1]) / (n - 1)
+        new[0] = x / (n - 1) * M[0]
+        for i in range(n, order):
+            new[i] = M[i]
+        M = new
+    return torch.stack(M)
+
+
+def exponential_spline_b(m, N, order):
+    """Exponential-spline deconvolution factors b(m) (complex)."""
+    M = cardinal_b_spline_values(torch.zeros_like(m), order)  # (order, |m|)
+    i = torch.arange(order, dtype=m.dtype, device=m.device)[:, None]
+    b = torch.sum(M * _expi(2.0 * np.pi * m * (i - 1.0) / N), dim=0)
+    return _expi(2.0 * np.pi * m * (order - 1.0) / N) / b
+
+
+def _spread_scatter(shape, l0, l1, l2, M0, M1, M2):
+    """Charge spreading: one ``index_add`` of the (order^3 x ions)
+    stencil weights into the flattened grid (arrays are (order, ions))."""
+    N0, N1, N2 = shape
+    w = (M0[:, None, None, :] * M1[None, :, None, :] * M2[None, None, :, :])
+    flat_idx = ((l0[:, None, None, :] * N1 + l1[None, :, None, :]) * N2
+                + l2[None, None, :, :])
+    Q = torch.zeros(N0 * N1 * N2, dtype=w.dtype, device=w.device)
+    Q = Q.index_add(0, flat_idx.reshape(-1), w.reshape(-1))
+    return Q.reshape(shape)
+
+
+def structure_factor_spline(box_vecs, shape, cart_ion_coords, order,
+                            method="auto"):
+    """Particle-mesh Ewald structure factor via cardinal B-splines on the
+    rfftn half-spectrum grid: conj(B * rfftn(Q)), Q the spread charges.
+    ``method`` 'auto', 'scatter' and 'mxu' all run the scatter."""
+    if method not in ("auto", "scatter", "mxu"):
+        raise ValueError("method must be 'auto', 'scatter' or 'mxu'")
+    N0, N1, N2 = shape
+    frac = cart_ion_coords @ inv3x3(box_vecs)
+    # wrap into [0, 1) twice, so that -1e-16 -> 1.0 -> 0.0
+    frac = frac - torch.floor(frac)
+    frac = frac - torch.floor(frac)
+    u = [frac[:, a] * n for a, n in enumerate(shape)]
+    f = [torch.floor(ua) for ua in u]
+    M0, M1, M2 = (cardinal_b_spline_values(ua - fa, order)
+                  for ua, fa in zip(u, f))            # (order, ions)
+    orders = torch.arange(order, device=frac.device)[:, None]
+    l0, l1, l2 = (torch.remainder(orders - fa.to(torch.long), n)
+                  for fa, n in zip(f, shape))
+    Q_ft = rfftn(_spread_scatter(shape, l0, l1, l2, M0, M1, M2))
+
+    def b(axis, n):
+        m = torch.arange(Q_ft.shape[axis], dtype=cart_ion_coords.dtype,
+                         device=frac.device)
+        return exponential_spline_b(m, n, order)
+    B = b(0, N0)[:, None, None] * b(1, N1)[None, :, None] \
+        * b(2, N2)[None, None, :]
+    return torch.conj_physical(B * Q_ft)
 
 
 def neighbor_shifts(box_vecs, Rc):

@@ -26,6 +26,9 @@ reaches the CUDA kernel.  Opaque closures stay autograd-only.
 
 E is accumulated in f64 (``qmean`` returns f64 for f32 fields); dE/dn is in
 the working dtype, per grid point, NOT scaled by the quadrature weight.
+One departure from the JAX package: PBE's potential takes 0 at points
+where its f32 form overflows (the density at the f32 floor, see
+``_vp_pbe``), where the JAX package's is NaN.
 Other terms raise ``KeyError`` (``supported_terms`` returns False).
 """
 
@@ -231,11 +234,20 @@ def _vp_pbe(ctx):
     df_dn_c = eps_c + H + den * (deps_dn_c + dHdn)
     df_dgn2_c = den * dH_dgn2
 
-    # one combined divergence for both pieces
+    # Where the density nears the f32 floor (~1e-11) next to a finite
+    # gradient, t2 and s2 overflow and the products above turn into
+    # inf / inf, in the JAX package's form too; one such point would spread
+    # NaN over the whole grid through the divergence.  Those points take
+    # the vanishing-density limit 0; finite values are left untouched.
+    w = _finite_or_zero(df_dgn2_x + df_dgn2_c)
     gx, gy, gz = ctx.grads
-    w = df_dgn2_x + df_dgn2_c
     aux = -2.0 * ctx.divergence(w * gx, w * gy, w * gz)
-    return E_x + E_c, df_dn_x + df_dn_c + aux
+    return E_x + E_c, _finite_or_zero(df_dn_x + df_dn_c) + aux
+
+
+def _finite_or_zero(x):
+    return torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def _vp_gga_kinetic(ctx, F_and_dF, clamp_s=None):

@@ -14,6 +14,8 @@ PyTorch port of ``professad_tpu/ops/solvers.py``:
   and best-iterate tracking.
 * ``tpgd_init`` / ``tpgd_step``: the unpreconditioned BB1 step of the host
   loop.
+* ``cg``: preconditioned conjugate gradients with the stopping rule of
+  ``jax.scipy.sparse.linalg.cg`` (the Hessian solves of ``ops/implicit.py``).
 
 Host loop decision: the JAX package runs a whole optimization as one
 ``lax.while_loop`` program.  Here the loops are Python, and they read ONE
@@ -32,7 +34,7 @@ import torch
 
 __all__ = ["LBFGSState", "lbfgs_init", "lbfgs_iterations", "lbfgs_minimize",
            "TPGDState", "tpgd_init", "tpgd_step", "tpgd_iteration",
-           "tpgd_minimize"]
+           "tpgd_minimize", "cg"]
 
 _STAG_K = 6  # iterations without a new best energy before the step halves
 
@@ -260,3 +262,38 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     if f_best < f_prev:
         st = st._replace(x=x_best, f=f_best_t)
     return st, it, cnt >= conv_count
+
+
+def cg(matvec, b, tol=1e-12, maxiter=2000, M=None):
+    """Solve ``matvec(x) = b`` for a symmetric positive definite operator
+    by preconditioned conjugate gradients from x = 0, stopping when
+    |r| <= tol |b| or after ``maxiter`` iterations: the iteration and the
+    stopping rule of ``jax.scipy.sparse.linalg.cg`` (the residual norm,
+    not the preconditioned one, is tested when ``M`` is given).  A host
+    loop that reads one scalar an iteration, so it runs outside every
+    ``torch.func`` transform.  Returns (x, iterations)."""
+    def dot(u, v):
+        return torch.sum(u * v)
+
+    bs = float(dot(b, b))
+    atol2 = tol * tol * bs
+    x = torch.zeros_like(b)
+    r = b.clone()                     # b - A x0 with x0 = 0
+    z = r if M is None else M(r)
+    p = z
+    gamma = dot(r, z)
+    k = 0
+    while k < maxiter:
+        rs = float(gamma) if M is None else float(dot(r, r))
+        if not rs > atol2:
+            break
+        Ap = matvec(p)
+        alpha = gamma / dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = r if M is None else M(r)
+        gamma_new = dot(r, z)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+        k += 1
+    return x, k

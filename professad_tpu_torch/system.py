@@ -1,25 +1,34 @@
 """The System class: orbital-free DFT with periodic boundaries (PyTorch).
 
-Port of the single-device ``professad_tpu.system.System`` up to its first
-derivatives: setup (cell, ions, recpot interpolation, v_ext), the setters
-and getters, the energy assembly, the chi gradient (fused analytic,
-autograd of the energy, or a user-supplied potential), the exact
-uniform-density preconditioner, the L-BFGS and TPGD density optimizers
-with the ``dE`` / ``dEdchi`` / ``euler`` stopping rules, the convergence
-diagnostics, the Hellmann-Feynman forces and the stress by autograd, the
-geometry relaxations (``optimize_geometry``,
-``optimize_parameterized_geometry``) with their host optimizers, and
-checkpoints.  Not ported yet: implicit second derivatives (ROADMAP A9),
-EOS utilities (A10), PME (A8), multi-device runs (A11).
+Port of the single-device ``professad_tpu.system.System``: setup (cell,
+ions, recpot interpolation, v_ext from the exact or the particle-mesh
+Ewald structure factor), the setters and getters, the energy assembly,
+the chi gradient (fused analytic, autograd of the energy, or a
+user-supplied potential), the exact uniform-density preconditioner (the
+full-grid Hessian-vector product, or above 256^3 its radially sampled
+surrogate), the L-BFGS and TPGD density optimizers with the ``dE`` /
+``dEdchi`` / ``euler`` stopping rules, the convergence diagnostics, the
+Hellmann-Feynman forces, pressure and enthalpy, the stress by autograd,
+the second derivatives through the ground state (bulk modulus, elastic
+constants, force constants) and the ground-state properties
+differentiable with respect to a trainable functional's parameters
+(``gs_property_fn``, ``gs_volume_property_fn``), the geometry relaxations
+(``optimize_geometry``, ``optimize_parameterized_geometry``) with their
+host optimizers, and checkpoints.  Not ported yet: EOS utilities (ROADMAP
+A10), multi-device runs (A11).
 
 Precision: the state (cell, ion coordinates, density, v_ext) is held in
 float64 on ``device`` (``None`` means ``cuda:0``; pass ``device="cpu"`` for
 the CPU); ``dtype`` is the working dtype of the density optimization
 (float32 is the fast tier, float64 the correctness tier; the L-BFGS paths
 are held to the JAX package in float64 only).  After an optimization the
-stored energy is the solver's own energy at the returned iterate
-(evaluated in ``dtype`` with f64 accumulation) plus the ion-ion energy,
-and the density is stored back in float64.
+density is stored back in float64, and the stored energy is the solver's
+own energy at the returned iterate (evaluated in ``dtype`` with f64
+accumulation) plus the ion-ion energy; with a term that has ``prepare``
+(the ladder terms HC, revHC and YukawaGGA, and MGP) the density-terms part
+is instead a direct f64 evaluation at the stored density, which sizes the
+ladder from that density, as the JAX package's stored energy does.  The
+getters of derivatives work in float64 from the stored state.
 """
 
 import functools
@@ -32,6 +41,7 @@ from .ops.grid import (wavevecs, volume, safe_sqrt, inv3x3, rfftn, wmean,
                        spectral_convolution, spectral_resample)
 from .ops.interp import interpolate
 from .ops import solvers
+from .ops import implicit
 from .ops.autodiff import get_functional_derivative
 from .models import ions as ion_utils
 from .models.interaction import IonElectron
@@ -58,14 +68,11 @@ class System:
     def __init__(self, box_vecs, shape, ions, terms, units="b",
                  coord_type="cartesian", Rc=None, pme_order=None,
                  device=None, dtype=torch.float64):
-        if pme_order is not None:
-            raise NotImplementedError(
-                "particle-mesh Ewald (pme_order) is not ported yet: "
-                "ROADMAP A8")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError("dtype must be torch.float32 or torch.float64")
         self._terms = list(terms)
         self._shape = tuple(int(s) for s in shape)
+        self._pme_order = pme_order
         self._Rc = Rc
         self._device = resolve_device(device)
         self._dtype = dtype
@@ -182,7 +189,7 @@ class System:
             v_s_ft = self._interp_recpot(table, k)
             positions = cart_ion_coords[counter:counter + count]
             v_ext = v_ext + ion_utils.lattice_sum(box_vecs, shape, positions,
-                                                  v_s_ft)
+                                                  v_s_ft, self._pme_order)
             counter += count
         return v_ext
 
@@ -321,7 +328,7 @@ class System:
     # ------------------------------------------------------------------
 
     def _density_terms_energy(self, box_vecs, den, v_ext, aux=None,
-                              static=True):
+                              static=True, functional=None, params=None):
         """Sum of all density-dependent terms (ion-ion excluded).
 
         The ladder terms (HC, revHC, YukawaGGA) take the ladder their
@@ -331,13 +338,18 @@ class System:
         eager calls.  ``aux``: the per-term list of ``_collect_term_aux``
         (hoisted kernel slabs), for the density optimizer paths only; the
         slabs depend on the cell, so the paths that differentiate with
-        respect to it (stress, geometry) must not pass them."""
+        respect to it (stress, geometry) must not pass them.  The term
+        ``functional`` (a trainable one) is evaluated with ``params``
+        (``functional.apply(params, box_vecs, den)``), so that they carry
+        the gradient."""
         E = torch.zeros((), dtype=den.dtype, device=den.device)
         for i, f in enumerate(self._terms):
             nm = term_name(f)
             owner = getattr(f, "__self__", f)
             a = aux[i] if aux is not None else None
-            if a is not None:
+            if functional is not None and f is functional:
+                E = E + functional.apply(params, box_vecs, den)
+            elif a is not None:
                 E = E + owner.apply_aux(a, box_vecs, den)
             elif nm == "IonElectron":
                 E = E + f(box_vecs, den, v_ext)
@@ -472,16 +484,80 @@ class System:
         # a constant of the solver: no graph to a trainable term's params
         return (1.0 / torch.maximum(F, floor)).detach()
 
+    def _exact_precond_kernel_radial(self, box_vecs, N_elec, n1d=4096):
+        """Radially sampled exact preconditioner kernel, for grids above
+        256^3, where the full-grid HVP's temporaries grow large.
+
+        F(k) at the uniform density is radial for every term without
+        ``prepare``, so the same HVP runs on a degenerate (n1d, 1, 1) ray
+        cell whose k_x axis covers 1.02 |k|max of the target grid, at the
+        same n0.  M = 1/F is Hermite-interpolated (uniform knots) onto
+        |k|: M ~ k^2 is smooth where F ~ 1/k^2 (Hartree) is not.  F is
+        then averaged over conjugate pairs on the k3 = 0 and Nyquist planes,
+        as the full-grid HVP does.  The grid's quadrature factor differs
+        between the ray and the target grid; the solvers' BB / L-BFGS
+        scaling cancels that constant."""
+        from .ops.interp import _tangents, _hermite_weights
+        shape = self._shape
+        dt, dev = box_vecs.dtype, box_vecs.device
+        _, _, _, k2 = wavevecs(box_vecs, shape)
+        kq = safe_sqrt(k2)
+        kmax = torch.sqrt(torch.max(k2))
+        Lx = np.pi * n1d / (1.02 * kmax)    # ray k_max = 1.02 |k|max
+        a = Lx / n1d                         # transverse cell (arbitrary)
+        box_s = torch.diag(torch.stack([Lx, a, a])).to(dt)
+        n0 = N_elec / volume(box_vecs)
+        shape_s = (n1d, 1, 1)
+        n0_field = n0 * torch.ones(shape_s, dtype=dt, device=dev)
+        delta = torch.zeros(shape_s, dtype=dt, device=dev)
+        delta[0, 0, 0] = 1.0
+        v_zero = torch.zeros(shape_s, dtype=dt, device=dev)
+        grad_E = torch.func.grad(
+            lambda den: self._density_terms_energy(box_s, den, v_zero))
+        _, hvp = torch.func.jvp(grad_E, (n0_field,), (delta,))
+        # the ray axis is a full FFT: keep F at k_j = 2 pi j / Lx, j >= 0
+        F1 = rfftn(hvp).real.to(dt).reshape(-1)[: n1d // 2 + 1]
+        kx = (2.0 * np.pi / Lx) * torch.arange(n1d // 2 + 1, dtype=dt,
+                                               device=dev)
+        step = kx[1]
+        M1 = 1.0 / torch.maximum(F1, 1e-8 * torch.max(F1))
+        idx = torch.clamp(torch.floor(kq / step).to(torch.long), 0,
+                          kx.numel() - 2)
+        m = _tangents(kx, M1)
+        t = (kq - idx.to(dt) * step) / step
+        h00, h10, h01, h11 = _hermite_weights(t)
+        M = (h00 * M1[idx] + h10 * m[idx] * step
+             + h01 * M1[idx + 1] + h11 * m[idx + 1] * step)
+        F = 1.0 / torch.maximum(M, 1e-12 * torch.max(M1))
+        # conjugate pairs (i, j) -> (-i, -j) on the real-field constraint
+        # planes: at a Nyquist index their |k| differ in a skewed cell
+        planes = [0] + ([shape[2] // 2] if shape[2] % 2 == 0 else [])
+        for zp in planes:
+            Fp = F[:, :, zp]
+            F[:, :, zp] = 0.5 * (Fp + torch.roll(torch.flip(Fp, (0, 1)),
+                                                 (1, 1), (0, 1)))
+        floor = 1e-8 * torch.max(F)
+        return (1.0 / torch.maximum(F, floor)).detach()
+
     def _precond_kernel(self, box_vecs, N_elec, aux=None):
-        """Exact preconditioner kernel M(k), full-grid HVP.  Grids above
-        256^3 need the radially sampled surrogate, which is not ported;
-        with a prepared term (whose slabs belong to this grid's ladder)
-        they keep the full-grid HVP, as in the JAX package."""
+        """Exact preconditioner kernel M(k): the full-grid HVP up to
+        256^3, the radially sampled surrogate above (ray of
+        max(4096, 16 max(shape)) points), unless a term has ``prepare``
+        (its slabs belong to this grid's ladder), as in the JAX
+        package."""
         if int(np.prod(self._shape)) > 256 ** 3 and not self._prepare_terms():
-            raise NotImplementedError(
-                "the radial preconditioner for grids above 256^3 is not "
-                "ported yet: ROADMAP A5")
+            n1d = max(4096, 16 * max(self._shape))
+            return self._exact_precond_kernel_radial(box_vecs, N_elec,
+                                                     n1d=n1d)
         return self._exact_precond_kernel(box_vecs, N_elec, aux)
+
+    def _exact_precond(self, box_vecs, N_elec, aux=None):
+        """The exact uniform-density preconditioner q -> M * q applied by
+        the spectral convolution (the CG preconditioner of the second
+        derivatives: the full-grid kernel whatever the grid, as in the
+        JAX package)."""
+        return self._apply_spectral(
+            self._exact_precond_kernel(box_vecs, N_elec, aux))
 
     def _apply_spectral(self, M):
         shape = self._shape
@@ -833,6 +909,260 @@ class System:
             (dEdh,) = torch.autograd.grad(E, h)
         stress = dEdh.T @ box0 / vol0
         return 0.5 * (stress + stress.T)
+
+    # ------------------------------------------------------------------
+    # second derivatives through the ground state
+    # ------------------------------------------------------------------
+    # The getters differentiate E(chi*(theta), theta) in float64 from the
+    # stored state with ``ops.implicit``: the Hessian solves run outside
+    # the autograd transforms, preconditioned by the exact full-grid kernel
+    # (the spectral-convolution kernel on the card).  Their energies take
+    # the ladder terms' cached ladder and never the hoisted slabs, which
+    # depend on the cell.  ``set_mesh`` raises, so no mesh branch exists
+    # (ROADMAP A11).
+
+    def _gs_chi(self):
+        return safe_sqrt(self._den)
+
+    def _cg_precond(self):
+        return self._exact_precond(self._box_vecs, self._N_elec)
+
+    def pressure(self, units="Ha/b3"):
+        """P = -dE/dV at the stored density (Hellmann-Feynman: no solve)."""
+        P = self._compute_volume_derivatives(bulk_modulus=False)
+        return P * self._pressure_unit(units)
+
+    def enthalpy(self, units="Ha"):
+        H = float(self._ene) + self.pressure() * self.volume()
+        if units == "Ha":
+            return H
+        if units == "eV":
+            return H * self.eV_per_Ha
+        raise ValueError("units must be 'Ha' or 'eV'")
+
+    def bulk_modulus(self, units="Ha/b3"):
+        """K = V d2E/dV2 through the ground state (one Hessian solve)."""
+        _, K = self._compute_volume_derivatives(bulk_modulus=True)
+        return K * self._pressure_unit(units)
+
+    def _volume_energy_fn(self):
+        """(chi, vol) -> energy of the cell scaled isotropically to vol."""
+        box0 = self._box_vecs
+        vol0 = self.volume("b3")
+        frac = self._frac_ion_coords
+        has_ie = self._needs_vext()
+        has_ii = self._has_ion_ion()
+        N_elec = self._N_elec
+
+        def energy(chi, vol):
+            h = box0 * (vol / vol0) ** (1.0 / 3.0)
+            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
+                     else self._v_ext)
+            N_tilde = wmean(chi * chi) * vol
+            den = (N_elec / N_tilde) * chi * chi
+            e = self._density_terms_energy(h, den, v_ext)
+            if has_ii:
+                e = e + self._ion_ion_interaction(h, frac @ h)
+            return e
+
+        return energy
+
+    def _compute_volume_derivatives(self, bulk_modulus=True):
+        energy = self._volume_energy_fn()
+        chi0 = self._gs_chi()
+        vol0 = torch.tensor(self.volume("b3"), dtype=_F64,
+                            device=self._device)
+        if not bulk_modulus:
+            with torch.enable_grad():
+                vol = vol0.clone().requires_grad_(True)
+                (dEdV,) = torch.autograd.grad(energy(chi0, vol), vol)
+            return float(-dEdV)
+        dEdV, H = implicit.ground_state_hessian(energy, chi0, vol0,
+                                                precond=self._cg_precond())
+        return float(-dEdV[0]), float(vol0 * H[0, 0])
+
+    def elastic_constants(self, units="Ha/b3"):
+        """Birch coefficients C_ijkl = d sigma_ij / d eps_kl through the
+        ground state, as the 6x6 Voigt matrix (9 Hessian solves)."""
+        return self._compute_elastic_constants() * self._pressure_unit(units)
+
+    def _compute_elastic_constants(self):
+        box0 = self._box_vecs
+        frac = self._frac_ion_coords
+        has_ie = self._needs_vext()
+        has_ii = self._has_ion_ion()
+        N_elec = self._N_elec
+
+        def energy(chi, h):
+            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
+                     else self._v_ext)
+            N_tilde = wmean(chi * chi) * volume(h)
+            den = (N_elec / N_tilde) * chi * chi
+            e = self._density_terms_energy(h, den, v_ext)
+            if has_ii:
+                e = e + self._ion_ion_interaction(h, frac @ h)
+            return e
+
+        G0, Hbar = implicit.ground_state_hessian(
+            energy, self._gs_chi(), box0, precond=self._cg_precond())
+        G0 = G0.reshape(3, 3)
+
+        def stress_of_h(h):
+            # the ground-state stress (dEbar/dh)^T h / vol, dEbar/dh to
+            # first order in h - h0: its Jacobian at h0 is exact
+            G = G0 + (Hbar @ (h - box0).reshape(-1)).reshape(3, 3)
+            return G.T @ h / volume(h)
+
+        # D[i, j, k, l] = d sigma_ij / d h_kl
+        D = torch.func.jacfwd(stress_of_h)(box0).cpu().numpy()
+        h = box0.cpu().numpy()
+
+        def C_block(i, j):
+            # C[(ij),(kl)] = sym_kl( sum_m D[i,j,m,k] h[m,l] )
+            M = D[i, j].T @ h
+            return 0.5 * (M + M.T)
+
+        voigt = [(0, 0), (1, 1), (2, 2), (1, 2), (0, 2), (0, 1)]
+        Cs = np.zeros((6, 6))
+        for a, (i, j) in enumerate(voigt):
+            B = C_block(i, j)
+            for b, (k, l) in enumerate(voigt):
+                Cs[a, b] = B[k, l]
+        Cs = np.triu(Cs) + np.triu(Cs, 1).T  # symmetrised as the reference
+        return self._t(Cs)
+
+    def force_constants(self, primitive_ion_indices, units="eV/a2"):
+        """Phi[a, j, i, b] = -dF_{p_a, i} / dR_{j, b} through the ground
+        state, p_a the primitive ions (3 Hessian solves each)."""
+        FC = self._compute_force_constants(primitive_ion_indices)
+        if units == "Ha/b2":
+            return FC
+        if units == "eV/a2":
+            return FC * self.eV_per_Ha / self.A_per_b**2
+        raise ValueError("units must be 'Ha/b2' or 'eV/a2'")
+
+    def _compute_force_constants(self, primitive_ion_indices):
+        box0 = self._box_vecs
+        has_ii = self._has_ion_ion()
+        N_elec = self._N_elec
+        n_ions = self._N_ions
+
+        def energy(chi, cart):
+            v_ext = self._potential_from_ions(box0, cart)
+            N_tilde = wmean(chi * chi) * volume(box0)
+            den = (N_elec / N_tilde) * chi * chi
+            e = self._density_terms_energy(box0, den, v_ext)
+            if has_ii:
+                e = e + self._ion_ion_interaction(box0, cart)
+            return e
+
+        prim = [int(p) for p in primitive_ion_indices]
+        rows = [3 * p + i for p in prim for i in range(3)]
+        _, Hbar = implicit.ground_state_hessian(
+            energy, self._gs_chi(), self._frac_ion_coords @ box0, rows=rows,
+            precond=self._cg_precond())
+        # Hbar[(p, i), (j, b)] = d2Ebar/dR_pi dR_jb = -dF_pi/dR_jb
+        return Hbar.reshape(len(prim), 3, n_ions, 3).permute(0, 2, 1, 3)
+
+    # ------------------------------------------------------------------
+    # differentiable ground-state properties (functional training)
+    # ------------------------------------------------------------------
+
+    def _check_functional(self, functional):
+        if not any(f is functional for f in self._terms):
+            raise ValueError("`functional` must be one of this System's "
+                             "terms")
+
+    def gs_property_fn(self, functional=None, property_fn=None):
+        """Ground-state properties differentiable with respect to the
+        parameters of a trainable term.
+
+        ``functional``: a term of this System with ``apply(params,
+        box_vecs, den)`` (a ``KineticFunctional``); its own parameters are
+        ignored inside the returned function, the ``params`` argument is
+        used instead.  ``property_fn(den, E)``: the quantity of interest
+        of the ground-state density [bohr^-3] and total energy [Ha, with
+        the ion-ion energy]; default the energy.  Returns ``fn(params)``,
+        whose backward takes d(chi*)/d(params) from one adjoint Hessian
+        solve at the stored density: call ``optimize_density()`` first,
+        with the same parameters."""
+        if functional is not None:
+            self._check_functional(functional)
+        box_vecs, v_ext, N_elec = self._box_vecs, self._v_ext, self._N_elec
+        vol = volume(box_vecs)
+        chi0 = self._gs_chi()
+
+        def density(chi):
+            return (N_elec / (wmean(chi * chi) * vol)) * chi * chi
+
+        def energy(chi, params):
+            return self._density_terms_energy(box_vecs, density(chi), v_ext,
+                                              functional=functional,
+                                              params=params)
+
+        pc = self._cg_precond()
+        with torch.no_grad():
+            E_ion = (float(self._ion_ion_energy()) if self._has_ion_ion()
+                     else 0.0)
+
+        def fn(params):
+            chi = implicit.implicit_ground_state(energy, chi0, (params,),
+                                                 precond=pc)
+            E = energy(chi, params) + E_ion
+            if property_fn is None:
+                return E
+            return property_fn(density(chi), E)
+
+        return fn
+
+    def gs_volume_property_fn(self, functional, property="pressure"):
+        """Pressure (-dE/dV) or bulk modulus (V d2E/dV2), in Ha/bohr^3,
+        at the ground state as a differentiable function of a trainable
+        term's parameters.  The ground state is the Newton map
+        (``implicit.newton_refined_ground_state``), since d(K)/d(params)
+        is a third mixed derivative.  Returns ``fn(params) -> scalar``;
+        call ``optimize_density()`` first, with the same parameters."""
+        if property not in ("pressure", "bulk_modulus"):
+            raise ValueError("property must be 'pressure' or 'bulk_modulus'")
+        self._check_functional(functional)
+        box0 = self._box_vecs
+        vol0 = self.volume("b3")
+        frac = self._frac_ion_coords
+        has_ie = self._needs_vext()
+        has_ii = self._has_ion_ion()
+        N_elec = self._N_elec
+        chi0 = self._gs_chi()
+
+        def energy(chi, vol, params):
+            h = box0 * (vol / vol0) ** (1.0 / 3.0)
+            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
+                     else self._v_ext)
+            N_tilde = wmean(chi * chi) * vol
+            den = (N_elec / N_tilde) * chi * chi
+            E = self._density_terms_energy(h, den, v_ext,
+                                           functional=functional,
+                                           params=params)
+            if has_ii:
+                # volume-dependent: in P and K, not in their gradients
+                E = E + self._ion_ion_interaction(h, frac @ h)
+            return E
+
+        pc = self._cg_precond()
+
+        def fn(params):
+            with torch.enable_grad():
+                vol = torch.tensor(vol0, dtype=_F64, device=self._device,
+                                   requires_grad=True)
+                chi = implicit.newton_refined_ground_state(
+                    energy, chi0, (vol, params), precond=pc)
+                (dEdV,) = torch.autograd.grad(energy(chi, vol, params), vol,
+                                              create_graph=True)
+                if property == "pressure":
+                    return -dEdV
+                (d2,) = torch.autograd.grad(dEdV, vol, create_graph=True)
+                return vol0 * d2
+
+        return fn
 
     # ------------------------------------------------------------------
     # checkpoint / resume

@@ -2,8 +2,10 @@
 spectral-convolution and Stockham kernels against their plain torch.fft
 versions on the card, their wrappers' checks and launch counts, the
 density paths, the fused potentials of every ported functional and the
-geometry relaxation on the card against the same calls on the CPU, and
-the fused sweeps of the functionals with ladders and kernel tables.
+geometry relaxation on the card against the same calls on the CPU, the
+fused sweeps of the functionals with ladders and kernel tables, and the
+second derivatives, PME and the radial preconditioner kernel against the
+CPU.
 
 They skip without a CUDA device.  This file imports no JAX, so on a GPU host
 without JAX run it without the suite's JAX conftest:
@@ -386,3 +388,62 @@ def test_nonlocal_potential_on_the_card(cuda, monkeypatch, name, shape,
     assert p.dtype == dtype and p.device == cuda
     assert abs(float(E) - float(E_ref)) <= tol_E * abs(float(E_ref))
     assert _rel(p.double().cpu(), p_ref) <= tol_p
+
+
+def _second_system(device, shape=(16, 16, 16)):
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeter, PerdewBurkeErnzerhof)
+    frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                     [0.0, 0.48, 0.53]])
+    return System(4.05 * np.eye(3), shape, [["Al", POT, frac]],
+                  [IonIon, IonElectron, Hartree, WangTeter,
+                   PerdewBurkeErnzerhof], units="a", coord_type="fractional",
+                  device=device)
+
+
+@pytest.mark.cuda
+def test_second_derivatives_card_vs_cpu(cuda):
+    """K, C and Phi on the card (the CG preconditioner applied by the
+    kernel) against the same getters on the CPU, one f64 state at 16^3,
+    rtol 1e-10."""
+    cpu = _second_system("cpu")
+    cpu.optimize_density(ntol=1e-10)
+    card = _second_system(cuda)
+    card.set_density(cpu.density().to(cuda))
+    before = sc.launches
+    got = (card.bulk_modulus(), card.elastic_constants().cpu(),
+           card.force_constants([3], "Ha/b2").cpu())
+    assert sc.launches > before
+    ref = (cpu.bulk_modulus(), cpu.elastic_constants(),
+           cpu.force_constants([3], "Ha/b2"))
+    assert abs(got[0] - ref[0]) <= 1e-10 * abs(ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        assert _rel(a, b) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_structure_factor_spline_card_vs_cpu(cuda):
+    """PME on the card (f64 index_add with atomics: a tolerance, not bit
+    equality) against the CPU, rtol 1e-12."""
+    from professad_tpu_torch.models import ions
+    rng = np.random.default_rng(7)
+    box = 7.0 * np.eye(3) + 0.3 * rng.random((3, 3))
+    coords = rng.random((41, 3)) @ box
+    out = [ions.structure_factor_spline(
+        torch.tensor(box, dtype=torch.float64, device=d), (18, 20, 14),
+        torch.tensor(coords, dtype=torch.float64, device=d), 10).cpu()
+        for d in (cuda, "cpu")]
+    assert _rel(out[0], out[1]) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_radial_kernel_card_vs_cpu(cuda):
+    """The radial preconditioner kernel on the card against the CPU,
+    (16, 20, 24), f64, rtol 1e-12."""
+    out = []
+    for d in (cuda, "cpu"):
+        s = _second_system(d, shape=(16, 20, 24))
+        out.append(s._exact_precond_kernel_radial(
+            s._box_vecs, float(s.electron_count())).cpu())
+    assert _rel(out[0], out[1]) <= 1e-12
