@@ -88,6 +88,26 @@ Phases (any failure exits non-zero):
      spectral_conv against its plain version at 320^3 (f32 and f64); then
      the 320^3 main path in f32 and f64, which must pick it and converge
      (phase_radial says what is bounded).
+ 15. the EOS scan on the main path's cell (128^3, 9 volumes over +-5%,
+     TPGD with the fused gradient, lr 1.0, ntol 1e-7, 3 hits, at most 1000
+     iterations), spectral_conv's count reset just before each timed run:
+     (a) the batched f32 scan, every volume a lane of one vmapped solve,
+     after a warm run, timed with chi scaled by 1 + 1e-7: seconds,
+     iterations per lane, converged lanes, launches (exactly 3 sites x
+     iterations + 2, whatever the lane count) and peak memory; (b) the same
+     per-lane solve 9 times, timed the same way; (a) and (b) fit K0 and V0
+     within 1e-4 of each other; (c) the serial f64 eos_fit (jit_loop,
+     preconditioned, step 1.0, ntol 1e-10), (a) within 2e-3 of it (the
+     bound of tests/test_robustness.py); (d) the reference's documentation
+     EOS (fcc Al, vWGTF1 + PBE, 2000 eV, f64) within the bounds of
+     tests/test_docs_parity.py; (e) the batched spectral_conv against its
+     plain version and lane by lane against the 3-D call at (9, 128, 128,
+     128) f32 (rel 1e-5) and f64 (1e-12) and (3, 27, 27, 39) f64, per-lane
+     and shared K, timed eagerly and from a CUDA graph beside the batched
+     cuFFT composition and the bound; (f) set_device: a System built on
+     the CPU, moved and optimized at 32^3 f64, within 1e-10 of one built on
+     the card; (g) get_inv_G at 61^3 on the card: WT against Lindhard,
+     KGAP against the gapped jellium, atol 1e-10.
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -1304,6 +1324,266 @@ def phase_radial(device, sync, E128, n=320):
     return launches
 
 
+EOS_N, EOS_F = 9, 0.05
+EOS_SOLVE = dict(n_method="TPGD", lr=1.0, ntol=NTOL, conv_count=3,
+                 max_iter=1000, analytic=True)
+DOCS_EOS = (87.821, 4.2268, -57.231, 16.86)   # tests/test_docs_parity.py
+
+
+def _eos_fit_points(s, vs, fs, E_ions):
+    """(K0 GPa, K0', E0 eV/atom, V0 A^3/atom) of the scan's points, as
+    ``System.eos_fit`` forms them."""
+    from professad_tpu_torch.utils.elastic import fit_eos
+    N = s.ion_count()
+    vols = [float(v) / N for v in vs]
+    enes = [(float(f) + E) * s.eV_per_Ha / N for f, E in zip(fs, E_ions)]
+    params, _ = fit_eos(vols, enes, "bm")
+    params[0] *= s.GPa_per_atomic / (s.eV_per_Ha / s.A_per_b ** 3)
+    return params
+
+
+def _eos_scans(device, sync, n):
+    """(a) the batched f32 scan and (b) the same per-lane solve 9 times,
+    on the main path's cell at n^3, each timed after a warm run; returns
+    both fits and the batched run's numbers."""
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    s = build_bench_system((n, n, n), torch.float32, device)
+    vs = s.volume("a3") * np.linspace(1 - EOS_F, 1 + EOS_F, EOS_N)
+    norm = (s.lattice_vectors("a") / s.volume("a3") ** (1 / 3)).cpu().numpy()
+    t0 = time.perf_counter()
+    box, vext, chi, E_ions = s._eos_points(vs, norm)
+    sync()
+    t_setup = time.perf_counter() - t0
+    batched = s._eos_solve_fn(dtype=torch.float32, **EOS_SOLVE)
+    serial = s._eos_solve_fn(batched=False, dtype=torch.float32,
+                             **EOS_SOLVE)
+    out = {}
+    for tag, run in (
+            ("batched", lambda c: batched(c, box, vext)),
+            ("serial", lambda c: [serial(c[b], box[b], vext[b])
+                                  for b in range(EOS_N)])):
+        run(chi)                                   # warm run
+        sync()
+        torch.cuda.reset_peak_memory_stats(device)
+        sc.launches = 0
+        t0 = time.perf_counter()
+        res = run(chi * (1 + 1e-7))
+        sync()
+        t = time.perf_counter() - t0
+        launches = sc.launches
+        if tag == "batched":
+            fs, conv, its = res
+        else:
+            fs, conv, its = (list(c) for c in zip(*res))
+        mib = torch.cuda.max_memory_allocated(device) / 2**20
+        params = _eos_fit_points(s, vs, fs, E_ions)
+        log(f"[eos] ({'a' if tag == 'batched' else 'b'}) {tag} f32 scan, "
+            f"{EOS_N} volumes +-{EOS_F:.0%} at {n}^3: {t:.3f} s (setup "
+            f"{t_setup:.3f} s, f64 on the card), iterations per lane {its}, "
+            f"converged {sum(conv)}/{EOS_N}, spectral_conv launches "
+            f"{launches}, max memory allocated {mib:.1f} MiB; K0 "
+            f"{params[0]:.6f} GPa, K0' {params[1]:.6f}, E0 {params[2]:.9f} "
+            f"eV/atom, V0 {params[3]:.9f} A^3/atom")
+        if not all(conv):
+            raise AssertionError(f"[eos] {tag} scan: a lane did not converge")
+        out[tag] = dict(t=t, its=its, launches=launches, params=params,
+                        mib=mib)
+    want = 3 * max(out["batched"]["its"]) + 2
+    log(f"[eos] batched scan launches {out['batched']['launches']} = 3 sites "
+        f"(preconditioner, vW, WT) x {max(out['batched']['its'])} iterations "
+        f"+ 2 (the first evaluation's vW and WT): {want}, for {EOS_N} lanes; "
+        f"the serial scan launched {out['serial']['launches']}")
+    if out["batched"]["launches"] != want:
+        raise AssertionError("[eos] batched launches scale with the lanes")
+    return s, out
+
+
+def _eos_f64_serial(device, n):
+    """(c) System.eos_fit, serial f64, on the main path's cell."""
+    import torch
+    s = build_bench_system((n, n, n), torch.float64, device)
+    t0 = time.perf_counter()
+    params, _ = s.eos_fit(f=EOS_F, N=EOS_N, eos="bm", ntol=1e-10,
+                          jit_loop=True, precondition=True, n_step_size=1.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    log(f"[eos] (c) serial f64 eos_fit at {n}^3 (L-BFGS, jit_loop, "
+        f"preconditioned, ntol 1e-10): {t:.3f} s; K0 {params[0]:.6f} GPa, "
+        f"K0' {params[1]:.6f}, E0 {params[2]:.9f} eV/atom, V0 "
+        f"{params[3]:.9f} A^3/atom")
+    return params, t
+
+
+def _eos_docs(device):
+    """(d) the reference's documentation EOS: fcc Al, vWGTF1 + PBE, 2000
+    eV, serial f64 (tests/test_docs_parity.py:28-41)."""
+    import torch
+    from professad_tpu_torch import System, get_cell
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            vWGTF1, PerdewBurkeErnzerhof)
+    lv, frac = get_cell("fcc", vol_per_atom=16.8, device=device)
+    shape = System.ecut2shape(2000, lv.cpu().numpy())
+    pot = os.path.join(ROOT, "tests", "potentials", "al.gga.recpot")
+    s = System(lv, shape, [["Al", pot, frac]],
+               [IonIon, IonElectron, Hartree, vWGTF1, PerdewBurkeErnzerhof],
+               units="a", coord_type="fractional", device=device,
+               dtype=torch.float64)
+    t0 = time.perf_counter()
+    params, _ = s.eos_fit(f=0.05, N=9, eos="bm", ntol=1e-10, jit_loop=True,
+                          precondition=True, n_step_size=1.0)
+    t = time.perf_counter() - t0
+    K0, K0p, E0, V0 = (float(p) for p in params)
+    ok = (abs(K0 - DOCS_EOS[0]) / DOCS_EOS[0] < 0.01
+          and abs(K0p - DOCS_EOS[1]) < 0.1 and abs(E0 - DOCS_EOS[2]) < 0.01
+          and abs(V0 - DOCS_EOS[3]) / DOCS_EOS[3] < 0.005)
+    log(f"[eos] (d) documentation EOS, fcc Al vWGTF1 + PBE at 2000 eV "
+        f"{shape}, f64: K0 {K0:.4f} GPa (docs {DOCS_EOS[0]}, 1%), K0' "
+        f"{K0p:.4f} ({DOCS_EOS[1]}, 0.1), E0 {E0:.5f} eV/atom "
+        f"({DOCS_EOS[2]}, 0.01 eV), V0 {V0:.4f} A^3/atom ({DOCS_EOS[3]}, "
+        f"0.5%); {t:.3f} s")
+    return ok
+
+
+EOS_KERNEL_SHAPES = ((EOS_N, 128, 128, 128), (3,) + G2_SHAPE)
+
+
+def _batched_kernel(device, shapes=EOS_KERNEL_SHAPES):
+    """(e) batched spectral_conv against its plain version and, lane by
+    lane, against the 3-D call, per-lane and shared K; the first shape
+    timed in f32."""
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    rng = np.random.default_rng(4)
+    failed, timed = [], {}
+    for shape in shapes:
+        B, n0, n1, n2 = shape
+        x_np = rng.standard_normal(shape)
+        # the half spectra of real even kernels, K(-k) = K(k): a c2r
+        # transform of a spectrum that is not Hermitian is not defined,
+        # and cuFFT's batched f32 plan at 128^3 treats one unlike its 3-D
+        # plan
+        K_np = rng.random(shape)
+        K_np = 0.5 * (K_np + K_np[(slice(None),) + np.ix_(
+            *[(-np.arange(m)) % m for m in (n0, n1, n2)])])
+        K_np = np.ascontiguousarray(K_np[..., : n2 // 2 + 1])
+        dts = ((torch.float32, 1e-5), (torch.float64, 1e-12)) \
+            if shape == shapes[0] else ((torch.float64, 1e-12),)
+        for dt, tol in dts:
+            x = torch.tensor(x_np, dtype=dt, device=device)
+            for kind in ("per-lane", "shared"):
+                K = torch.tensor(K_np if kind == "per-lane" else K_np[0],
+                                 dtype=dt, device=device)
+                y = sc.spectral_conv(x, K)
+                yr = sc.spectral_conv_reference(x, K)
+                e_ref = _rel(y, yr)
+                e_lane = max(_rel(y[b], sc.spectral_conv(
+                    x[b], K if kind == "shared" else K[b]))
+                    for b in range(B))
+                abs_err = float((y - yr).abs().max())
+                log(f"[eos] (e) batched spectral_conv {shape} "
+                    f"{str(dt)[6:]} {kind} K: rel to the plain version "
+                    f"{e_ref:.3e}, to the 3-D call lane by lane "
+                    f"{e_lane:.3e} (tol {tol:g}), max abs {abs_err:.3e}")
+                if not (e_ref < tol and e_lane < tol):
+                    failed.append(f"{shape} {dt} {kind}")
+                if (shape == shapes[0] and dt == torch.float32
+                        and kind == "per-lane"):
+                    dims = (-3, -2, -1)
+
+                    def lib():
+                        return torch.fft.irfftn(
+                            K * torch.fft.rfftn(x, dim=dims),
+                            s=(n0, n1, n2), dim=dims)
+                    with torch.no_grad():
+                        ms = cuda_time_ms(lambda: sc.spectral_conv(x, K), 10)
+                        gms = graph_time_ms(lambda: sc.spectral_conv(x, K),
+                                            10)
+                        lms = cuda_time_ms(lib, 10)
+                        glms = graph_time_ms(lib, 10)
+                    m2 = n2 // 2 + 1
+                    bms, by = bound(4 * B * (2 * n0 * n1 * n2 + n0 * n1 * m2),
+                                    B * 2 * 2.5 * n0 * n1 * n2
+                                    * np.log2(n0 * n1 * n2))
+                    timed = dict(ms=ms, graph_ms=gms, library_ms=lms,
+                                 library_graph_ms=glms, bound_ms=bms,
+                                 bound_by=by, max_abs_err=abs_err)
+                    log(f"[eos] (e) batched {shape} f32 per call: kernel "
+                        f"{ms:.4f} ms eager, {gms:.4f} ms from a CUDA graph; "
+                        f"cuFFT irfftn(K rfftn(x)) over the last three axes "
+                        f"{lms:.4f} / {glms:.4f} ms; bound {bms:.4f} ms "
+                        f"({by}, {100 * bms / gms:.1f}% of the graph time)")
+    if failed:
+        raise AssertionError(f"[eos] batched spectral_conv disagrees: "
+                             f"{failed}")
+    return timed
+
+
+def _eos_set_device(device, n=32):
+    """(f) a System built on the CPU, moved to the card, optimized: the
+    energy of one built on the card within 1e-10 relative."""
+    import torch
+    s = build_bench_system((n, n, n), torch.float64, torch.device("cpu"))
+    s.set_device(device)
+    optimize(s)
+    ref = build_bench_system((n, n, n), torch.float64, device)
+    optimize(ref)
+    d = abs(s.energy() - ref.energy()) / abs(ref.energy())
+    log(f"[eos] (f) set_device: built on the CPU, moved, optimized at {n}^3 "
+        f"f64: E {s.energy('eV'):.12f} eV against {ref.energy('eV'):.12f} "
+        f"built on the card, rel {d:.3e} (bound 1e-10); density on "
+        f"{s.density().device}")
+    return d < 1e-10 and s.density().device == device
+
+
+def _eos_linear_response(device, n=61):
+    """(g) get_inv_G on the card, tests/test_linear_response.py's grid."""
+    import torch
+    from professad_tpu_torch.ops.autodiff import get_inv_G
+    from professad_tpu_torch.models import (G_inv_lindhard, WangTeter,
+                                            G_inv_gap, KGAP)
+    box = 8 * torch.eye(3, dtype=torch.float64, device=device)
+    den = torch.ones((n, n, n), dtype=torch.float64, device=device)
+    _, G_lind = G_inv_lindhard(box, den)
+    _, G_wt = get_inv_G(box, den, WangTeter)
+    eta, G_k = get_inv_G(box, den, lambda bv, m: KGAP(bv, m, 1.17))
+    _, G_gap = G_inv_gap(box, den, 1.17)
+    d_wt = float((G_wt - G_lind).abs().max())
+    d_k = float((G_k - G_gap)[eta != 0].abs().max())
+    log(f"[eos] (g) get_inv_G at {n}^3 f64 on the card: WT vs Lindhard "
+        f"{d_wt:.3e}, KGAP vs gapped jellium {d_k:.3e} (atol 1e-10)")
+    return d_wt < 1e-10 and d_k < 1e-10
+
+
+def phase_eos(device, sync, n=128, kernel_shapes=EOS_KERNEL_SHAPES):
+    """The EOS scan (see the module docstring, phase 15).  Returns the
+    batched scan's launches and the batched kernel's times."""
+    s, scans = _eos_scans(device, sync, n)
+    del s
+    pa, pb = scans["batched"]["params"], scans["serial"]["params"]
+    pc, _ = _eos_f64_serial(device, n)
+    checks = {}
+    for tag, (x, y, tol) in {
+            "(a) vs (b) K0": (pa[0], pb[0], 1e-4),
+            "(a) vs (b) V0": (pa[3], pb[3], 1e-4),
+            "(a) vs (c) K0": (pa[0], pc[0], 2e-3),
+            "(a) vs (c) V0": (pa[3], pc[3], 2e-3)}.items():
+        d = abs(x - y) / abs(y)
+        log(f"[eos] {tag}: {x:.9f} vs {y:.9f}, rel {d:.3e} (bound {tol:g})")
+        checks[tag] = d < tol
+    t_a, t_b = scans["batched"]["t"], scans["serial"]["t"]
+    log(f"[eos] time to the f32 scan: batched {t_a:.3f} s, serial "
+        f"{t_b:.3f} s ({t_b / t_a:.2f}x)")
+    checks["(d) documentation numbers"] = _eos_docs(device)
+    timed = _batched_kernel(device, kernel_shapes)
+    checks["(f) set_device"] = _eos_set_device(device)
+    checks["(g) linear response"] = _eos_linear_response(device)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[eos] failed: {failed}")
+    return scans["batched"]["launches"], timed
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1340,6 +1620,7 @@ def main():
     second_launches, _ = phase_second(device)
     pme_launches = phase_pme(device)
     radial_launches = phase_radial(device, sync, res["E"])
+    eos_launches, batched = phase_eos(device, sync)
 
     abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
@@ -1355,7 +1636,12 @@ def main():
         "geometry_launches": geo_launches,
         "nonlocal_launches": nl_launches,
         "second_launches": second_launches, "pme_launches": pme_launches,
-        "radial_launches": radial_launches,
+        "radial_launches": radial_launches, "eos_launches": eos_launches,
+        "batched_ms": batched["ms"], "batched_graph_ms": batched["graph_ms"],
+        "batched_library_ms": batched["library_ms"],
+        "batched_library_graph_ms": batched["library_graph_ms"],
+        "batched_bound_ms": batched["bound_ms"],
+        "batched_max_abs_err": batched["max_abs_err"],
         "library_call": "irfftn(K * rfftn(x)): three calls",
         "graph_ms": graph[0], "plain_graph_ms": graph[1],
         "library_graph_ms": graph[2]}]

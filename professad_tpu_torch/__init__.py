@@ -11,9 +11,16 @@ functionals) with their fused analytic potentials, the field-dependent
 (xi-ladder) convolution, the density optimizers (host-loop and
 whole-optimization L-BFGS and TPGD; autograd, fused analytic or
 user-supplied chi gradient; the exact uniform-density preconditioner), the
-convergence diagnostics, forces and stress, and the geometry relaxations
-with their host optimizers.  Both Pallas kernel files of the JAX package
-have hand-written CUDA counterparts: the fused spectral convolution
+convergence diagnostics, forces and stress, the geometry relaxations with
+their host optimizers, the second derivatives through the ground state,
+the EOS scan (serial, and lane-batched under ``torch.func.vmap``) with its
+fit, the crystal cell generators, the elastic averages, linear response
+G^-1(eta), stress and pressure of a functional, the profiling hooks and
+the reference's drop-in module names (``functionals``,
+``functional_tools``, ``ion_utils``, ``crystal_tools``,
+``elastic_tools``).  Multi-device runs are not ported (ROADMAP A11).
+Both Pallas kernel files of the JAX package have hand-written CUDA
+counterparts: the fused spectral convolution
 (``ops/spectral_conv.py``, ``csrc/spectral_conv.cu``), which the density
 path runs on CUDA tensors, and the radix-2 Stockham FFTs
 (``ops/vpufft.py``, ``csrc/stockham.cu``); on CPU tensors each runs its
@@ -30,8 +37,13 @@ from .ops.grid import (wavevecs, grad_i, grad_dot_grad, laplacian,
 from .ops.interp import interpolate, interpolate_kernel
 from .ops.fieldconv import (field_dependent_convolution,
                             field_dependent_convolution_naive, xi_ladder)
-from .ops.autodiff import get_functional_derivative
+from .ops.autodiff import (get_functional_derivative, get_inv_G, get_stress,
+                           get_pressure)
 from .system import System
+from .utils.crystal import get_cell
+from .utils.elastic import (fit_eos, voigt_moduli, reuss_moduli,
+                            shear_average, poissons_ratio, youngs_modulus)
+from .utils.profiling import trace, annotate, StepTimer
 from .convert import (system_state_from_jax, functional_params_from_jax,
                       functional_state_from_jax)
 
@@ -41,6 +53,10 @@ __all__ = ["System", "system_state_from_jax", "functional_params_from_jax",
            "reduced_gradient", "reduced_gradient_squared",
            "reduced_laplacian", "interpolate", "interpolate_kernel",
            "field_dependent_convolution", "field_dependent_convolution_naive",
-           "xi_ladder", "get_functional_derivative"]
+           "xi_ladder", "get_functional_derivative", "get_inv_G",
+           "get_stress", "get_pressure", "get_cell", "fit_eos",
+           "voigt_moduli", "reuss_moduli", "shear_average",
+           "poissons_ratio", "youngs_modulus", "trace", "annotate",
+           "StepTimer"]
 
 __version__ = "0.1.0"

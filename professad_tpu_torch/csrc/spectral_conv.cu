@@ -7,7 +7,14 @@
 //
 // What it computes, for real x (n0, n1, n2) and a real half-spectrum K
 // (n0, n1, m2), m2 = n2/2 + 1, in the torch.fft / jnp.fft convention, in five
-// launches over one complex (n0, n1, m2) intermediate the caller allocates:
+// launches over one complex (n0, n1, m2) intermediate the caller allocates.
+// A batch of B such convolutions (x and y (B, n0, n1, n2), lanes contiguous,
+// the lanes' K kstride values apart: n0 n1 m2 for one K per lane, 0 for one K
+// shared by all) takes the same five launches: the z passes treat the batch
+// as B n0 n1 rows and the y passes as B n0 planes, and the x pass (the only
+// one whose lines cross the planes of a lane) takes the lane from blockIdx.y.
+// This is what the Pallas kernel computes under jax.vmap, where its batching
+// rule runs one program over the lanes.
 //   1. real FFT along z                      x -> buf
 //   2. FFT along y                           buf -> buf (in place)
 //   3. FFT along x, times K, inverse FFT     buf -> buf (in place)
@@ -103,13 +110,14 @@ rfft_z(const T* __restrict__ x, typename Cx<T>::type* __restrict__ out,
   }
 }
 
-// 2-4. FFT along the middle axis of (outer, n, inner), in place.  MULK:
-// forward, times the real K (laid out like the data), inverse.
+// 2-4. FFT along the middle axis of (outer, n, inner), in place, one outer
+// index per blockIdx.y.  MULK: forward, times the real K (laid out like one
+// outer index of the data, kstride values per outer index), inverse.
 template <typename T, bool MIXED, bool MULK>
 __global__ void __launch_bounds__(fftcore::kMaxThreads)
 fft_mid(typename Cx<T>::type* __restrict__ buf, const T* __restrict__ K,
         const typename Cx<T>::type* __restrict__ tw, Axis a, long long inner,
-        int inverse) {
+        long long kstride, int inverse) {
   typedef typename Cx<T>::type C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* s = reinterpret_cast<C*>(smem_raw);
@@ -117,6 +125,7 @@ fft_mid(typename Cx<T>::type* __restrict__ buf, const T* __restrict__ K,
   const long long c0 = (long long)blockIdx.x * W;
   const int nc = (int)min((long long)W, inner - c0);
   const long long base = (long long)blockIdx.y * n * inner + c0;
+  const long long kbase = (long long)blockIdx.y * kstride + c0;
   const C* stw;
   const int* splan;
   fftcore::stage_tables(s + n * pitch, tw, a.ntw, a.plan, a.nst, &stw,
@@ -131,7 +140,7 @@ fft_mid(typename Cx<T>::type* __restrict__ buf, const T* __restrict__ K,
   if (MULK) {
     fftcore::scale_tile(s, n << a.logw, a.logw, pitch, [&](int e) {
       const int c = e & (W - 1);
-      return c < nc ? K[base + (e >> a.logw) * inner + c] : T(0);
+      return c < nc ? K[kbase + (e >> a.logw) * inner + c] : T(0);
     });
     fftcore::fft_tile<T, MIXED>(s, n, a.logw, pitch, splan, a.nst, stw, true);
   }
@@ -219,13 +228,16 @@ template <typename T, bool MIXED>
 int run(const T* x, const T* K, T* y, T* buf_raw, const T* tw0,
         const T* tw1, const T* tw2, const int* pl0, const int* pl1,
         const int* pl2, int nst0, int nst1, int nst2, int ntw0, int ntw1,
-        int ntw2, int n0, int n1, int n2, int wz, int wy, int wx,
-        cudaStream_t stream) {
+        int ntw2, int n0, int n1, int n2, int wz, int wy, int wx, int B,
+        long long kstride, cudaStream_t stream) {
   typedef typename Cx<T>::type C;
   using fftcore::tile_smem;
   using fftcore::tile_threads;
   const int m2 = n2 / 2 + 1;
-  const long long rows = (long long)n0 * n1;
+  const long long rows = (long long)B * n0 * n1;
+  const long long inner_x = (long long)n1 * m2;
+  // gridDim.y of the y passes (B n0 planes) and of the x pass (B lanes)
+  if (B < 1 || (long long)B * n0 > 65535) return (int)cudaErrorInvalidValue;
   C* buf = reinterpret_cast<C*>(buf_raw);
   const C* t0 = reinterpret_cast<const C*>(tw0);
   const C* t1 = reinterpret_cast<const C*>(tw1);
@@ -246,17 +258,17 @@ int run(const T* x, const T* K, T* y, T* buf_raw, const T* tw0,
     return (int)err;
 
   const unsigned gz = (unsigned)((rows + 2 * wz - 1) / (2 * wz));
-  const dim3 gy((m2 + wy - 1) / wy, n0);
-  const dim3 gx((unsigned)((rows / n0 * m2 + wx - 1) / wx), 1);
+  const dim3 gy((m2 + wy - 1) / wy, (unsigned)(B * n0));
+  const dim3 gx((unsigned)((inner_x + wx - 1) / wx), (unsigned)B);
   const T scale = T(1) / (T(n0) * T(n1) * T(n2));
   rfft_z<T, MIXED><<<gz, tile_threads(n2, wz), sz, stream>>>(x, buf, t2, az,
                                                              rows);
   fft_mid<T, MIXED, false><<<gy, tile_threads(n1, wy), sy, stream>>>(
-      buf, nullptr, t1, ay, m2, 0);
+      buf, nullptr, t1, ay, m2, 0, 0);
   fft_mid<T, MIXED, true><<<gx, tile_threads(n0, wx), sx, stream>>>(
-      buf, K, t0, ax, rows / n0 * m2, 0);
+      buf, K, t0, ax, inner_x, kstride, 0);
   fft_mid<T, MIXED, false><<<gy, tile_threads(n1, wy), sy, stream>>>(
-      buf, nullptr, t1, ay, m2, 1);
+      buf, nullptr, t1, ay, m2, 0, 1);
   irfft_z<T, MIXED><<<gz, tile_threads(n2, wz), sz, stream>>>(
       buf, y, t2, az, rows, scale);
   return (int)cudaGetLastError();
@@ -267,34 +279,36 @@ template <typename T>
 int run_any(const T* x, const T* K, T* y, T* buf, const T* tw0, const T* tw1,
             const T* tw2, const int* pl0, const int* pl1, const int* pl2,
             int nst0, int nst1, int nst2, int ntw0, int ntw1, int ntw2,
-            int n0, int n1, int n2, int wz, int wy, int wx,
-            cudaStream_t stream) {
+            int n0, int n1, int n2, int wz, int wy, int wx, int B,
+            long long kstride, cudaStream_t stream) {
   using fftcore::is_pow2;
   if (is_pow2(n0) && is_pow2(n1) && is_pow2(n2))
     return run<T, false>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
                          nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx,
-                         stream);
+                         B, kstride, stream);
   return run<T, true>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0, nst1,
-                      nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx, stream);
+                      nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx, B,
+                      kstride, stream);
 }
 
 }  // namespace
 
-// x, K, y: the arrays; buf: (n0, n1, m2) complex scratch; twN / plN / nstN /
-// ntwN: the twiddles, stage plan, stage count and twiddle count of axis N
-// (ops/fft_plan.py); wz, wy, wx: the tile widths of the z, y and x passes
-// (powers of two).
+// x, K, y: the arrays; buf: (B, n0, n1, m2) complex scratch; twN / plN /
+// nstN / ntwN: the twiddles, stage plan, stage count and twiddle count of
+// axis N (ops/fft_plan.py); wz, wy, wx: the tile widths of the z, y and x
+// passes (powers of two); B: the lanes (B n0 <= 65535); kstride: the values
+// between two lanes' K (0: one K for all lanes).
 extern "C" int spectral_conv_f32(const float* x, const float* K, float* y,
                                  float* buf, const float* tw0,
                                  const float* tw1, const float* tw2,
                                  const int* pl0, const int* pl1,
                                  const int* pl2, int nst0, int nst1, int nst2,
                                  int ntw0, int ntw1, int ntw2, int n0, int n1,
-                                 int n2, int wz, int wy, int wx,
-                                 void* stream) {
+                                 int n2, int wz, int wy, int wx, int B,
+                                 long long kstride, void* stream) {
   return run_any<float>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
                         nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy, wx,
-                        static_cast<cudaStream_t>(stream));
+                        B, kstride, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int spectral_conv_f64(const double* x, const double* K, double* y,
@@ -303,9 +317,9 @@ extern "C" int spectral_conv_f64(const double* x, const double* K, double* y,
                                  const int* pl0, const int* pl1,
                                  const int* pl2, int nst0, int nst1, int nst2,
                                  int ntw0, int ntw1, int ntw2, int n0, int n1,
-                                 int n2, int wz, int wy, int wx,
-                                 void* stream) {
+                                 int n2, int wz, int wy, int wx, int B,
+                                 long long kstride, void* stream) {
   return run_any<double>(x, K, y, buf, tw0, tw1, tw2, pl0, pl1, pl2, nst0,
                          nst1, nst2, ntw0, ntw1, ntw2, n0, n1, n2, wz, wy,
-                         wx, static_cast<cudaStream_t>(stream));
+                         wx, B, kstride, static_cast<cudaStream_t>(stream));
 }

@@ -104,10 +104,15 @@ class KineticFunctional(nn.Module):
             p.requires_grad_(requires_grad)
 
     def set_device(self, device=None):
-        """Move the parameters and the optimizer state to ``device``."""
+        """Move the parameters, the optimizer state, and what ``prepare``
+        cached (kernel tables, hoisted slabs) to ``device``."""
         if device is None:
             return
         self.to(device)
+        if getattr(self, "kernel", None) is not None:
+            self.kernel = tuple(t.to(device) for t in self.kernel)
+        if getattr(self, "_aux", None) is not None:
+            self._aux = {k: v.to(device) for k, v in self._aux.items()}
         if self.opt_state is not None:
             (step, prev), rest = self.opt_state
             self.opt_state = (({k: v.to(device) for k, v in step.items()},

@@ -15,9 +15,11 @@ import numpy as np
 import torch
 
 from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn
+from ..ops.interp import interpolate
 from ..utils.constants import RECPOT_BOHR, RECPOT_POT_CONV
 
-__all__ = ["read_recpot", "get_ion_charge", "structure_factor",
+__all__ = ["read_recpot", "get_ion_charge", "interpolate_recpot",
+           "structure_factor",
            "structure_factor_spline", "cardinal_b_spline_values",
            "exponential_spline_b", "lattice_sum", "neighbor_shifts",
            "ion_interaction_sum"]
@@ -63,6 +65,21 @@ def read_recpot(path):
 def get_ion_charge(path):
     """Ion charge Z from the k->0 limit -4 pi Z / k^2."""
     return read_recpot(path)[2]
+
+
+def interpolate_recpot(path, ks_interp):
+    """The recpot table of ``path`` Hermite-interpolated onto the
+    wavenumbers ``ks_interp`` (clamped to the table's end), with the
+    Coulomb tail -4 pi Z / k^2 subtracted analytically away from k = 0.
+    Works in the dtype and on the device of ``ks_interp``."""
+    ks, pot_ft, z = read_recpot(path)
+    ks = torch.as_tensor(ks, dtype=ks_interp.dtype, device=ks_interp.device)
+    pot_ft = torch.as_tensor(pot_ft, dtype=ks_interp.dtype,
+                             device=ks_interp.device)
+    interp = interpolate(ks, pot_ft, torch.clamp(ks_interp, max=ks[-1]))
+    nz = ks_interp != 0.0
+    k_safe = torch.where(nz, ks_interp, 1.0)
+    return torch.where(nz, interp - 4.0 * np.pi * z / k_safe**2, interp)
 
 
 def structure_factor(box_vecs, shape, cart_ion_coords):

@@ -212,7 +212,7 @@ class YukawaGGA(KineticFunctional):
     def prepare(self, box_vecs, den):
         """Cache the xi ladder of this density."""
         k_F = (3.0 * np.pi**2 * den) ** (1.0 / 3.0)
-        xis = float(self.params["alpha"]) * k_F
+        xis = float(self.params["alpha"].detach()) * k_F
         lo = float(torch.min(xis)) / self.ladder_margin
         hi = float(torch.max(xis)) * self.ladder_margin
         self.xi_sparse = xi_ladder(lo, hi, self.kappa, self.mode)

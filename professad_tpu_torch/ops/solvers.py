@@ -16,6 +16,12 @@ PyTorch port of ``professad_tpu/ops/solvers.py``:
   loop.
 * ``cg``: preconditioned conjugate gradients with the stopping rule of
   ``jax.scipy.sparse.linalg.cg`` (the Hessian solves of ``ops/implicit.py``).
+* ``tpgd_minimize_lanes`` / ``lbfgs_minimize_lanes``: B independent
+  problems (lanes) at once, the JAX package's ``tpgd_minimize`` /
+  ``lbfgs_minimize`` under ``jax.vmap`` (the batched EOS scan).  The device
+  step is ``torch.func.vmap`` of ``tpgd_iteration`` / ``lbfgs_iterations``;
+  a lane that has stopped is frozen by a ``torch.where`` on the carried
+  state, as the batching rule of ``lax.while_loop`` selects.
 
 Host loop decision: the JAX package runs a whole optimization as one
 ``lax.while_loop`` program.  Here the loops are Python, and they read ONE
@@ -34,7 +40,8 @@ import torch
 
 __all__ = ["LBFGSState", "lbfgs_init", "lbfgs_iterations", "lbfgs_minimize",
            "TPGDState", "tpgd_init", "tpgd_step", "tpgd_iteration",
-           "tpgd_minimize", "cg"]
+           "tpgd_minimize", "cg", "tpgd_minimize_lanes",
+           "lbfgs_minimize_lanes"]
 
 _STAG_K = 6  # iterations without a new best energy before the step halves
 
@@ -297,3 +304,144 @@ def cg(matvec, b, tol=1e-12, maxiter=2000, M=None):
         gamma = gamma_new
         k += 1
     return x, k
+
+
+# ------------------------------ lane batches ------------------------------
+# The lane solvers carry a state whose tensors have a leading lane axis and
+# whose ``n_iter`` is shared: every lane starts together, and a lane's
+# n_iter only matters while it runs.  The host reads ONE (B,) energy vector
+# an iteration; the stopping rule, stagnation damping and best iterate are
+# kept per lane in host float64, as the serial solvers keep them.
+
+
+def _lane_select(keep, new, old):
+    """Per lane, ``old`` where ``keep`` (a host list of bools), else
+    ``new``."""
+    if not any(keep):
+        return new
+    mask = torch.tensor(keep, device=new.device)
+    return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
+
+
+def _lane_fns(value_and_grad, apply_H0, lane):
+    """One lane's closures over its slices ``lane`` of the lane tensors."""
+    def vg(x):
+        f, g = value_and_grad(x, *lane)
+        return f, g.reshape(x.shape)
+    M = None if apply_H0 is None else (lambda v: apply_H0(v, *lane))
+    return vg, M
+
+
+def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
+                        conv_count=3, max_iter=1000, f_scale=1.0,
+                        skip_iters=2, apply_H0=None):
+    """``tpgd_minimize`` on B lanes at once.
+
+    ``x0`` is (B, ...); ``lanes`` is a tuple of tensors with a leading
+    axis of B.  ``value_and_grad(x, *lane) -> (f, g)`` and
+    ``apply_H0(v, *lane)`` see one lane: x and each entry of ``lane`` are
+    that lane's slices.  Both run under ``torch.func.vmap``, so they must
+    not read tensors to the host.  A lane stops when its |dE| rule holds;
+    the loop ends when every lane has stopped or after ``max_iter``
+    iterations.  Each lane's result is what ``tpgd_minimize`` gives for it
+    (to rounding: vmapped reductions may sum in another order).  Returns
+    (state, iterations per lane, converged per lane): the state's ``x``
+    and ``f`` (a (B,) tensor) are each lane's best iterate."""
+    B = x0.shape[0]
+
+    def init(x, *lane):
+        return _lane_fns(value_and_grad, apply_H0, lane)[0](x)
+
+    f0, g0 = torch.func.vmap(init)(x0, *lanes)
+    eps = torch.finfo(x0.dtype).eps
+    zeros = torch.zeros_like(g0)
+    st = TPGDState(x=x0, f=f0, g=g0, g_prev=g0, Mg_prev=zeros,
+                   s_prev=zeros, n_iter=0)
+    f_prev = f0.tolist()
+    f_best = list(f_prev)
+    x_best = x0
+    cnt, it, stag = [0] * B, [0] * B, [0] * B
+    damp = [1.0] * B
+    while not all(c >= conv_count for c in cnt) and max(it) < max_iter:
+        done = [c >= conv_count for c in cnt]
+        n_iter = st.n_iter
+
+        def step(x, f, g, g_prev, Mg_prev, s_prev, scale, *lane):
+            vg, M = _lane_fns(value_and_grad, apply_H0, lane)
+            old = TPGDState(x, f, g, g_prev, Mg_prev, s_prev, n_iter)
+            return tuple(tpgd_iteration(vg, old, lr, apply_H0=M,
+                                        scale=scale))[:-1]
+
+        scale = torch.tensor(damp, dtype=x0.dtype, device=x0.device)
+        new = torch.func.vmap(step)(*st[:-1], scale, *lanes)
+        st = TPGDState(*(_lane_select(done, a, b)
+                         for a, b in zip(new, st[:-1])), n_iter=n_iter + 1)
+        f_new = st.f.tolist()
+        better = [False] * B
+        for b in range(B):
+            if done[b]:
+                continue
+            tol_stag = 8.0 * eps * max(abs(f_best[b]), 1.0)
+            improved = f_best[b] - f_new[b] > tol_stag
+            if f_new[b] < f_best[b]:
+                f_best[b], better[b] = f_new[b], True
+            stag[b] = 0 if improved else stag[b] + 1
+            if stag[b] >= _STAG_K:
+                damp[b] *= 0.5
+                stag[b] = 0
+            hit = (it[b] + 1 > skip_iters
+                   and abs(f_new[b] - f_prev[b]) * f_scale < ntol)
+            cnt[b] = cnt[b] + 1 if hit else 0
+            it[b] += 1
+            f_prev[b] = f_new[b]
+        x_best = _lane_select([not v for v in better], x_best, st.x)
+    take = [fb < fl for fb, fl in zip(f_best, f_prev)]
+    f_out = torch.tensor([fb if t else fl for fb, fl, t in
+                          zip(f_best, f_prev, take)], dtype=st.f.dtype,
+                         device=st.f.device)
+    st = st._replace(x=_lane_select(take, st.x, x_best), f=f_out)
+    return st, it, [c >= conv_count for c in cnt]
+
+
+def lbfgs_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
+                         conv_count=3, max_iter=1000, history=8,
+                         f_scale=1.0, skip_iters=5, apply_H0=None, block=6):
+    """``lbfgs_minimize`` on B lanes at once, with the lane conventions of
+    :func:`tpgd_minimize_lanes`: blocks of ``block`` iterations per outer
+    step, the |dE| rule per lane after ``skip_iters`` outer steps, a
+    stopped lane frozen.  Returns (state, outer steps per lane, converged
+    per lane)."""
+    B = x0.shape[0]
+
+    def init(x, *lane):
+        vg = _lane_fns(value_and_grad, apply_H0, lane)[0]
+        return tuple(lbfgs_init(vg, x, history))[:-1]
+
+    st = LBFGSState(*torch.func.vmap(init)(x0, *lanes), n_iter=0)
+    f_prev = st.f.tolist()
+    cnt, it = [0] * B, [0] * B
+    while not all(c >= conv_count for c in cnt) and max(it) < max_iter:
+        done = [c >= conv_count for c in cnt]
+        n_iter = st.n_iter
+
+        def step(*args):
+            fields, lane = args[:10], args[10:]
+            vg, M = _lane_fns(value_and_grad, apply_H0, lane)
+            old = LBFGSState(*fields, n_iter=n_iter)
+            return tuple(lbfgs_iterations(vg, old, block, lr,
+                                          apply_H0=M))[:-1]
+
+        new = torch.func.vmap(step)(*st[:-1], *lanes)
+        st = LBFGSState(*(_lane_select(done, a, b)
+                          for a, b in zip(new, st[:-1])),
+                        n_iter=n_iter + block)
+        f_new = st.f.tolist()
+        for b in range(B):
+            if done[b]:
+                continue
+            hit = (it[b] + 1 > skip_iters
+                   and abs(f_new[b] - f_prev[b]) * f_scale < ntol)
+            cnt[b] = cnt[b] + 1 if hit else 0
+            it[b] += 1
+            f_prev[b] = f_new[b]
+    return st, it, [c >= conv_count for c in cnt]

@@ -14,8 +14,10 @@ constants, force constants) and the ground-state properties
 differentiable with respect to a trainable functional's parameters
 (``gs_property_fn``, ``gs_volume_property_fn``), the geometry relaxations
 (``optimize_geometry``, ``optimize_parameterized_geometry``) with their
-host optimizers, and checkpoints.  Not ported yet: EOS utilities (ROADMAP
-A10), multi-device runs (A11).
+host optimizers, checkpoints, ``set_device``, and the EOS scan
+(``eos_fit``): serial, or all volumes at once as lanes of one vmapped
+solve (``batched=True``).  Not ported yet: multi-device runs (ROADMAP
+A11).
 
 Precision: the state (cell, ion coordinates, density, v_ext) is held in
 float64 on ``device`` (``None`` means ``cuda:0``; pass ``device="cpu"`` for
@@ -33,6 +35,7 @@ getters of derivatives work in float64 from the stored state.
 
 import functools
 import pickle
+import warnings
 
 import numpy as np
 import torch
@@ -46,6 +49,7 @@ from .ops.autodiff import get_functional_derivative
 from .models import ions as ion_utils
 from .models.interaction import IonElectron
 from .utils.constants import A_PER_B, EV_PER_HA, GPA_PER_ATOMIC
+from .utils.elastic import fit_eos
 from .utils.naming import term_name
 from .utils.device import resolve_device
 
@@ -260,6 +264,30 @@ class System:
         self._Rc = Rc
         self._shifts_key = None
 
+    def set_device(self, device=None):
+        """Move every tensor the System holds to ``device`` (``None``
+        means ``cuda:0``): the cell, ion coordinates and charges, density,
+        external potential, stored energy, the recpot tables, and each
+        term's parameters and prepared ladder, kernel tables and slabs.
+        The System builds its preconditioner kernel anew for each run, so
+        no kernel is cached.  Later runs allocate on ``device`` only."""
+        dev = resolve_device(device)
+        self._device = dev
+        self._box_vecs = self._box_vecs.to(dev)
+        self._frac_ion_coords = self._frac_ion_coords.to(dev)
+        self._charges = self._charges.to(dev)
+        self._den = self._den.to(dev)
+        self._v_ext = self._v_ext.to(dev)
+        if torch.is_tensor(self._ene):
+            self._ene = self._ene.to(dev)
+        self._recpot_tables = [(ks.to(dev), pot.to(dev), z)
+                               for ks, pot, z in self._recpot_tables]
+        owners = {id(o): o for o in (getattr(f, "__self__", f)
+                                     for f in self._terms)}
+        for owner in owners.values():
+            if callable(getattr(owner, "set_device", None)):
+                owner.set_device(dev)
+
     def set_mesh(self, mesh):
         """Multi-device runs are not ported; ``None`` (no mesh) is the only
         setting."""
@@ -303,11 +331,33 @@ class System:
             return self._v_ext * self.eV_per_Ha
         raise ValueError("units must be 'Ha' or 'eV'")
 
-    def density(self):
-        """Electron density (float64, on the system's device)."""
+    @staticmethod
+    def _warn_requires_grad(method):
+        """The reference returned graph-connected tensors from
+        ``density`` / ``energy`` / ``pressure`` / ``bulk_modulus``
+        (``requires_grad=True``); here, as in the JAX package, the value
+        is detached, and gradients of ground-state properties go through
+        ``gs_property_fn`` / ``gs_volume_property_fn``.  Warn rather than
+        detach silently."""
+        warnings.warn(
+            f"System.{method}(requires_grad=True): the returned value is "
+            "NOT graph-connected. For gradients of ground-state properties "
+            "with respect to functional parameters use "
+            "System.gs_property_fn / gs_volume_property_fn (implicit "
+            "differentiation through the minimizer).",
+            UserWarning, stacklevel=3)
+
+    def density(self, requires_grad=False):
+        """Electron density (float64, on the system's device);
+        ``requires_grad=True`` warns (see ``gs_property_fn``)."""
+        if requires_grad:
+            self._warn_requires_grad("density")
+            return self._den.detach()
         return self._den
 
-    def energy(self, units="Ha"):
+    def energy(self, units="Ha", requires_grad=False):
+        if requires_grad:
+            self._warn_requires_grad("energy")
         E = float(self._ene)
         if units == "Ha":
             return E
@@ -571,9 +621,10 @@ class System:
 
     # -- ion-ion --------------------------------------------------------
 
-    def _Rc_Rd(self):
-        """Cutoff/damping heuristic from the concrete cell."""
-        bv = self._box_vecs.cpu().numpy()
+    def _Rc_Rd(self, box=None):
+        """Cutoff/damping heuristic from the concrete cell (the stored one,
+        or ``box``)."""
+        bv = (self._box_vecs if box is None else box).cpu().numpy()
         inv_T = np.linalg.inv(bv.T)
         h = 1.0 / np.sqrt(np.sum(inv_T**2, axis=1))
         h_max = float(np.max(h))
@@ -817,10 +868,13 @@ class System:
     # convergence diagnostics
     # ------------------------------------------------------------------
 
-    def functional_derivative(self, type="density"):
+    def functional_derivative(self, type="density", requires_grad=False):
         """delta E / delta n or delta E / delta chi at the stored density,
         in atomic units (per unit volume: divided by the quadrature
         weight)."""
+        if requires_grad:
+            self._warn_requires_grad("functional_derivative")
+            return self.functional_derivative(type).detach()
         if type == "density":
             return self._dEdn(self._box_vecs, self._den, self._v_ext)
         if type == "chi":
@@ -927,8 +981,10 @@ class System:
     def _cg_precond(self):
         return self._exact_precond(self._box_vecs, self._N_elec)
 
-    def pressure(self, units="Ha/b3"):
+    def pressure(self, units="Ha/b3", requires_grad=False):
         """P = -dE/dV at the stored density (Hellmann-Feynman: no solve)."""
+        if requires_grad:
+            self._warn_requires_grad("pressure")
         P = self._compute_volume_derivatives(bulk_modulus=False)
         return P * self._pressure_unit(units)
 
@@ -940,8 +996,10 @@ class System:
             return H * self.eV_per_Ha
         raise ValueError("units must be 'Ha' or 'eV'")
 
-    def bulk_modulus(self, units="Ha/b3"):
+    def bulk_modulus(self, units="Ha/b3", requires_grad=False):
         """K = V d2E/dV2 through the ground state (one Hessian solve)."""
+        if requires_grad:
+            self._warn_requires_grad("bulk_modulus")
         _, K = self._compute_volume_derivatives(bulk_modulus=True)
         return K * self._pressure_unit(units)
 
@@ -1216,6 +1274,236 @@ class System:
         grid shape and species)."""
         with open(path, "rb") as fh:
             self.load_state_dict(pickle.load(fh))
+
+    # ------------------------------------------------------------------
+    # EOS
+    # ------------------------------------------------------------------
+
+    def eos_fit(self, f=0.05, N=9, eos="bm", verbose=False, plot=False,
+                batched=False, mesh=None, dtype=None, **den_opt_kwargs):
+        """Murnaghan / Birch-Murnaghan EOS fit over N volumes within
+        +-f of the current one.  Returns (params, errors), params
+        (K0 [GPa], K0', E0 [eV/atom], V0 [A^3/atom]).
+
+        The serial scan (the default) sets each volume in turn and
+        re-optimizes the density from the last one, with the
+        ``den_opt_kwargs`` of ``optimize_density`` over the defaults
+        ntol 1e-10, L-BFGS, step 0.1: the System is left at the last
+        volume.  ``batched=True`` solves every volume at once, as the
+        lanes of one vmapped whole-optimization solve (exact-preconditioned
+        TPGD or L-BFGS with ``n_method``; step ``n_step_size``, default
+        1.0; ``analytic`` default False) in ``dtype`` (default the
+        System's working dtype), each volume's energy evaluated in
+        float64 at its end point (see ``_eos_solve_fn``), and leaves the
+        System untouched.
+        ``dtype`` without ``batched`` raises; ``mesh=`` (multi-device
+        scans) is not ported and raises."""
+        den_opt_inputs = {"ntol": 1e-10, "n_conv_cond_count": 3,
+                          "n_method": "LBFGS", "n_step_size": 0.1,
+                          "n_maxiter": 1000, "conv_target": "dE",
+                          "n_verbose": False, "from_uniform": False}
+        den_opt_inputs.update(den_opt_kwargs)
+        if dtype is not None and not batched:
+            raise ValueError(
+                "eos_fit(dtype=...) applies to the batched scan only; the "
+                "serial scan runs at the System's own precision")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device runs are not ported yet: ROADMAP A11")
+
+        pred_v0 = self.volume("a3")
+        norm_box_vecs = self.lattice_vectors("a") / pred_v0 ** (1.0 / 3.0)
+        vs = pred_v0 * np.linspace(1 - f, 1 + f, N)
+        header = "\n{:^22} {:^22}".format("Volume [A^3 per atom]",
+                                          "Energy [eV per atom]")
+        if batched:
+            volumes, energies = self._eos_scan_batched(
+                vs, norm_box_vecs.cpu().numpy(),
+                ntol=den_opt_inputs["ntol"],
+                lr=den_opt_kwargs.get("n_step_size", 1.0),
+                max_iter=round(den_opt_inputs["n_maxiter"]),
+                n_method=den_opt_inputs["n_method"],
+                conv_count=den_opt_inputs["n_conv_cond_count"],
+                conv_target=den_opt_inputs["conv_target"],
+                analytic=den_opt_kwargs.get("analytic", False),
+                dtype=dtype)
+            if verbose:
+                print(header)
+                for v, e in zip(volumes, energies):
+                    print("{:^22.10f} {:^22.10f}".format(v, e))
+        else:
+            energies, volumes = [], []
+            if verbose:
+                print(header)
+            for v in vs:
+                self.set_lattice(v ** (1.0 / 3.0) * norm_box_vecs, units="a")
+                self.optimize_density(**den_opt_inputs)
+                vol_per_atom = self.volume("a3") / self._N_ions
+                ene_per_atom = self.energy("eV") / self._N_ions
+                volumes.append(vol_per_atom)
+                energies.append(ene_per_atom)
+                if verbose:
+                    print("{:^22.10f} {:^22.10f}".format(vol_per_atom,
+                                                         ene_per_atom))
+        params, err = fit_eos(volumes, energies, eos, plot)
+        params[0] *= self.GPa_per_atomic / (self.eV_per_Ha / self.A_per_b**3)
+        err[0] *= self.GPa_per_atomic / (self.eV_per_Ha / self.A_per_b**3)
+        return params, err
+
+    def _eos_points(self, vs_A3, norm_box_A):
+        """The scan's stacked inputs (boxes, v_ext, uniform chi), set up in
+        float64 on the System's device (the solve casts them to its
+        dtype), and the per-volume ion-ion energies [Ha]."""
+        frac = self._frac_ion_coords
+        boxes, vexts, chis, E_ions = [], [], [], []
+        for v in vs_A3:
+            box = self._t((v ** (1.0 / 3.0)) * norm_box_A / self.A_per_b)
+            vol = float(volume(box))
+            if self._needs_vext():
+                v_ext = self._potential_from_ions(box, frac @ box)
+            else:
+                v_ext = torch.zeros(self._shape, dtype=_F64,
+                                    device=self._device)
+            chi0 = torch.full(self._shape, np.sqrt(self._N_elec / vol),
+                              dtype=_F64, device=self._device)
+            E_ii = 0.0
+            if self._has_ion_ion():
+                Rc, Rd = self._Rc_Rd(box=box)
+                shifts = ion_utils.neighbor_shifts(box.cpu().numpy(), Rc)
+                with torch.no_grad():
+                    E_ii = float(ion_utils.ion_interaction_sum(
+                        box, frac @ box, self._charges, Rc, Rd,
+                        shifts=shifts))
+            boxes.append(box)
+            vexts.append(v_ext)
+            chis.append(chi0)
+            E_ions.append(E_ii)
+        return (torch.stack(boxes), torch.stack(vexts), torch.stack(chis),
+                E_ions)
+
+    def _eos_energy(self, chi, box, v_ext):
+        """The density-terms energy [Ha] of a scan's end point, evaluated
+        in float64 from the float64 cell and potential."""
+        with torch.no_grad():
+            return float(self._chi_energy(chi.to(_F64), box, v_ext,
+                                          float(self._N_elec)))
+
+    def _eos_solve_fn(self, n_method, lr, ntol, conv_count, max_iter,
+                      analytic, batched=True, dtype=None):
+        """The scan's solve: ``solve(chi, box, v_ext) -> (E_density_terms
+        [Ha], converged, iterations)`` from the float64 inputs of
+        ``_eos_points``: one volume's whole optimization in ``dtype``
+        (default the System's working dtype) with the exact preconditioner
+        of its cell and the fused analytic (``analytic``) or autograd chi
+        gradient.  ``batched``: the arguments carry a leading lane axis
+        and the lanes run as one vmapped solve
+        (``solvers.*_minimize_lanes``), each lane's result that of the
+        serial solve; else one volume through the serial solvers.
+
+        The energy is evaluated in float64 at the end point.  The JAX
+        package returns the solver's own energy, which a float32 solve
+        evaluates in float32 with float64 accumulation: at 128^3 that
+        scatters by up to 4 ueV/atom from run to run, and the fitted K0
+        by up to 3e-4, while the float32 end points lie within 0.03
+        ueV/atom of the float64 minimum.  In float64 the two agree to
+        rounding."""
+        N_elec = float(self._N_elec)
+        dt = self._dtype if dtype is None else dtype
+
+        def value_and_grad(x, box, v_ext, M):
+            if analytic:
+                return self._chi_value_and_grad_analytic(x, box, v_ext,
+                                                         N_elec)
+            g, E = torch.func.grad_and_value(self._chi_energy)(
+                x, box, v_ext, N_elec)
+            return E, g
+
+        def apply_H0(q, box, v_ext, M):
+            return spectral_convolution(M, q.reshape(self._shape),
+                                        self._shape).reshape(q.shape)
+
+        def kernel(box):
+            return self._exact_precond_kernel(box, N_elec)
+
+        kw = dict(lr=lr, ntol=ntol, conv_count=conv_count,
+                  max_iter=max_iter, f_scale=EV_PER_HA, skip_iters=2)
+        if n_method != "TPGD":
+            kw["block"] = 1
+        if batched:
+            minimize = (solvers.tpgd_minimize_lanes if n_method == "TPGD"
+                        else solvers.lbfgs_minimize_lanes)
+
+            def solve(chi, box, v_ext):
+                b, v = box.to(dt), v_ext.to(dt)
+                M = torch.func.vmap(kernel)(b)
+                st, its, conv = minimize(value_and_grad, chi.to(dt),
+                                         lanes=(b, v, M),
+                                         apply_H0=apply_H0, **kw)
+                fs = [self._eos_energy(st.x[i], box[i], v_ext[i])
+                      for i in range(chi.shape[0])]
+                return fs, conv, its
+            return solve
+
+        minimize = (solvers.tpgd_minimize if n_method == "TPGD"
+                    else solvers.lbfgs_minimize)
+
+        def solve(chi, box, v_ext):
+            b, v = box.to(dt), v_ext.to(dt)
+            M = kernel(b)
+            st, it, conv = minimize(
+                lambda x: value_and_grad(x, b, v, M), chi.to(dt),
+                apply_H0=lambda q: apply_H0(q, b, v, M), **kw)
+            return self._eos_energy(st.x, box, v_ext), conv, it
+        return solve
+
+    def _eos_scan_batched(self, vs_A3, norm_box_A, ntol, lr, max_iter,
+                          n_method="LBFGS", conv_count=3, conv_target="dE",
+                          analytic=False, dtype=None):
+        """Batched volume scan: every volume a lane of one vmapped solve.
+        Non-converged volumes are dropped from the fit, with a printed
+        warning naming them; fewer than 5 left raises.  Terms with
+        ``prepare`` (HC, revHC, YukawaGGA, MGP) are rejected: their ladders
+        and tables belong to one cell, and one program for all lanes would
+        clip-extrapolate the lanes that leave it.  Returns (volumes
+        [A^3/atom], energies [eV/atom]) as lists."""
+        for f in self._terms:
+            if callable(getattr(getattr(f, "__self__", f), "prepare", None)):
+                raise ValueError(
+                    f"eos_fit(batched=True) does not support ladder-based "
+                    f"term '{term_name(f)}' (per-volume xi ladders can't "
+                    f"share one program); use batched=False.")
+        if conv_target != "dE":
+            raise ValueError(
+                "eos_fit(batched=True) supports conv_target='dE' only")
+        if n_method not in ("LBFGS", "TPGD"):
+            raise ValueError("n_method must be 'LBFGS' or 'TPGD'")
+        box_b, vext_b, chi_b, E_ions = self._eos_points(vs_A3, norm_box_A)
+        if analytic:
+            from .models.potentials import supported_terms
+            if not supported_terms(self._terms):
+                raise ValueError(
+                    "eos_fit(batched=True, analytic=True) requires every "
+                    "term to have a fused analytic potential.")
+        solve = self._eos_solve_fn(n_method, lr, ntol, conv_count, max_iter,
+                                   analytic, dtype=dtype)
+        fs, convs, _ = solve(chi_b, box_b, vext_b)
+        vol_per_atom, ene_per_atom, dropped = [], [], []
+        for v, f, E_ii, ok in zip(vs_A3, fs, E_ions, convs):
+            if ok:
+                vol_per_atom.append(float(v) / self._N_ions)
+                ene_per_atom.append((f + E_ii) * self.eV_per_Ha
+                                    / self._N_ions)
+            else:
+                dropped.append(float(v))
+        if dropped:
+            print(f"Warning: batched EOS scan: dropping non-converged "
+                  f"volume point(s) {dropped} [A^3] from the fit")
+        if len(vol_per_atom) < 5:
+            raise RuntimeError(
+                f"batched EOS scan: only {len(vol_per_atom)} of "
+                f"{len(list(vs_A3))} volume points converged - not enough "
+                f"for a 4-parameter EOS fit (raise n_maxiter or loosen ntol)")
+        return vol_per_atom, ene_per_atom
 
     # ------------------------------------------------------------------
     # geometry optimization

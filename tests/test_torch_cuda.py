@@ -447,3 +447,144 @@ def test_radial_kernel_card_vs_cpu(cuda):
         out.append(s._exact_precond_kernel_radial(
             s._box_vecs, float(s.electron_count())).cpu())
     assert _rel(out[0], out[1]) <= 1e-12
+
+
+def _batch_case(B, shape, dtype, device, seed=7):
+    """x and one K per lane.  Each K is the half spectrum of a real even
+    kernel, K(-k) = K(k), as every physical kernel is: a c2r transform of
+    a spectrum that is not Hermitian on the kz = 0 and Nyquist planes is
+    not defined, and cuFFT's batched f32 plan at 128^3 treats such input
+    unlike its 3-D plan (3.6e-2 apart on the card)."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((B,) + shape), dtype=dtype,
+                     device=device)
+    Kf = rng.random((B,) + shape)
+    mirror = np.ix_(*[(-np.arange(n)) % n for n in shape])
+    Kf = 0.5 * (Kf + Kf[(slice(None),) + mirror])
+    K = torch.tensor(np.ascontiguousarray(Kf[..., : shape[2] // 2 + 1]),
+                     dtype=dtype, device=device)
+    return x, K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B,shape", [(3, (128, 128, 128)), (5, (27, 27, 39)),
+                                     (4, (9, 15, 7))], ids=str)
+def test_batched_kernel_matches_reference(cuda, B, shape, dtype, tol,
+                                          shared):
+    """A (B, n0, n1, n2) batch in ONE kernel call (one launch counted)
+    against the plain version, and lane by lane against the 3-D kernel
+    call, with one K per lane or one shared."""
+    x, K = _batch_case(B, shape, dtype, cuda)
+    K = K[0] if shared else K
+    before = sc.launches
+    y = sc.spectral_conv(x, K)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    assert _rel(y, sc.spectral_conv_reference(x, K)) < tol
+    for b in range(B):
+        yb = sc.spectral_conv(x[b], K if shared else K[b])
+        assert _rel(y[b], yb) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+def test_vmap_rule_forward_and_backward(cuda, dtype, tol):
+    """torch.func.vmap of the 3-D call launches the batched kernel once
+    (K batched or shared); its backward, by autograd through the vmapped
+    call and by torch.func.grad under vmap, is the same operator."""
+    x, K = _batch_case(4, (16, 12, 10), dtype, cuda)
+    ct = torch.randn_like(x)
+    ref = sc.spectral_conv_reference(x, K)
+    xv = x.clone().requires_grad_(True)
+    before = sc.launches
+    y = torch.func.vmap(sc.spectral_conv)(xv, K)
+    assert sc.launches == before + 1
+    assert _rel(y.detach(), ref) < tol
+    y.backward(ct)
+    assert sc.launches == before + 2
+    assert _rel(xv.grad, sc.spectral_conv_reference(ct, K)) < tol
+    before = sc.launches
+    ys = torch.func.vmap(sc.spectral_conv, in_dims=(0, None))(x, K[0])
+    assert sc.launches == before + 1
+    assert _rel(ys, sc.spectral_conv_reference(x, K[0])) < tol
+    # d/dv (|A v|^2 / 2) = A (A v): forward and backward batched
+    g = torch.func.vmap(torch.func.grad(
+        lambda v, k: 0.5 * (sc.spectral_conv(v, k) ** 2).sum()))(x, K)
+    want = sc.spectral_conv_reference(ref, K)
+    assert _rel(g, want) < 10 * tol
+
+
+@pytest.mark.cuda
+def test_batched_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, K = _batch_case(3, (8, 8, 8), torch.float32, cuda)
+    with pytest.raises(ValueError, match="requires_grad"):
+        sc.spectral_conv(x, K.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="K must be"):
+        sc.spectral_conv(x, K[:2])
+    with pytest.raises(ValueError, match="65535"):
+        sc.spectral_conv(torch.zeros((8200, 8, 2, 2), device=cuda),
+                         torch.zeros((8, 2, 2), device=cuda))
+
+
+def _fcc_al(device, shape=(16, 16, 16)):
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeter, PerdewBurkeErnzerhof)
+    cell = 4.050 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5],
+                             [0.5, 0.0, 0.5]])
+    return System(cell, shape, [["Al", POT, np.zeros((1, 3))]],
+                  [IonIon, IonElectron, Hartree, WangTeter,
+                   PerdewBurkeErnzerhof], units="a", coord_type="fractional",
+                  device=device, dtype=torch.float64)
+
+
+_DEN_OPT = dict(ntol=1e-9, n_method="TPGD", analytic=True, precondition=True,
+                n_step_size=1.0, skip_iters=2, jit_loop=True)
+
+
+@pytest.mark.cuda
+def test_set_device_to_the_card(cuda):
+    """Built on the CPU, moved, optimized on the card: the energy of a
+    System built on the card, within 1e-10 relative."""
+    s = _fcc_al("cpu")
+    s.set_device("cuda")
+    assert s.density().device == cuda and s._charges.device == cuda
+    assert all(t.device == cuda for ks, pot, _ in s._recpot_tables
+               for t in (ks, pot))
+    before = sc.launches
+    s.optimize_density(**_DEN_OPT)
+    assert sc.launches > before
+    ref = _fcc_al(cuda)
+    ref.optimize_density(**_DEN_OPT)
+    assert abs(s.energy() - ref.energy()) < 1e-10 * abs(ref.energy())
+
+
+@pytest.mark.cuda
+def test_batched_eos_scan_on_the_card(cuda):
+    """16^3, N = 6, TPGD with the fused gradient: every lane against the
+    serial solve of that lane on the card (rel 1e-10 in f64); B1 launches
+    once per site and iteration whatever the lane count (the first
+    evaluation's vW and WT, then the preconditioner, vW and WT a step)."""
+    s = _fcc_al(cuda)
+    vs = s.volume("a3") * np.linspace(0.95, 1.05, 6)
+    norm = (s.lattice_vectors("a") / s.volume("a3") ** (1 / 3)).cpu().numpy()
+    box, vext, chi, _ = s._eos_points(vs, norm)
+    kw = dict(n_method="TPGD", lr=1.0, ntol=1e-9, conv_count=3,
+              max_iter=300, analytic=True)
+    before = sc.launches
+    f, conv, its = s._eos_solve_fn(**kw)(chi, box, vext)
+    assert sc.launches - before == 3 * max(its) + 2
+    serial = s._eos_solve_fn(batched=False, **kw)
+    for b in range(len(vs)):
+        f1, conv1, _ = serial(chi[b], box[b], vext[b])
+        assert conv[b] and conv1
+        assert abs(float(f[b]) - float(f1)) < 1e-10 * abs(float(f1))
+    params, _ = s.eos_fit(f=0.05, N=6, batched=True, n_method="TPGD",
+                          analytic=True, ntol=1e-9)
+    assert np.all(np.isfinite(params))
