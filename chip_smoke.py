@@ -108,6 +108,21 @@ Phases (any failure exits non-zero):
      the CPU, moved and optimized at 32^3 f64, within 1e-10 of one built on
      the card; (g) get_inv_G at 61^3 on the card: WT against Lindhard,
      KGAP against the gapped jellium, atol 1e-10.
+ 16. the mesh paths (multi-device runs) on one NCCL rank: a process group
+     of world size 1 on cuda:0 (file:// rendezvous in a temporary
+     directory), a ("batch", "grid") mesh of shape (1, 1), destroyed at the
+     end of the phase.  (a) the main path through optimize_density(
+     mesh=make_mesh(1), jit_loop=True, TPGD, analytic) after a warm run,
+     spectral_conv's count reset just before the timed run and read just
+     after (the pencil path must not launch it): seconds, iterations,
+     ms/iter, peak memory, NCCL version, beside the serial [slice] run;
+     |E_mesh - E_serial| < 2e-5 eV/atom and the iterations within 2;
+     (b) 64^3 f64, the G1 cell compressed by 3% with ion 0 displaced,
+     ntol 1e-10: the mesh solve's energy
+     against the serial solve's, its forces and stress against the serial
+     ones at the same density, rel 1e-12; (c) 32^3 f64: bulk_modulus on the mesh against the
+     serial getter, rel 1e-10; (d) eos_fit(mesh=batch mesh, batched=True)
+     against the serial batched scan (64^3, f32), 1e-4 in K0 and V0.
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -1584,6 +1599,136 @@ def phase_eos(device, sync, n=128, kernel_shapes=EOS_KERNEL_SHAPES):
     return scans["batched"]["launches"], timed
 
 
+MESH_SOLVE = dict(ntol=NTOL, n_method="TPGD", analytic=True,
+                  precondition=True, n_step_size=1.0, skip_iters=2,
+                  jit_loop=True, from_uniform=True, n_maxiter=5000)
+
+
+def phase_mesh(device, sync, serial, sizes=(128, 64, 32, 64)):
+    """The mesh paths on one NCCL rank (module docstring, phase 16);
+    ``serial`` is the [slice] result of this call at ``sizes[0]``; the
+    other sizes are those of (b), (c) and (d).  Returns spectral_conv's
+    launches in the timed mesh run (0: the pencil path composes torch.fft
+    transforms)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from professad_tpu_torch.ops import spectral_conv as sc
+    from professad_tpu_torch.parallel import init_process_group, make_mesh
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(0, 1, "file://" + os.path.join(tmp, "rdv"),
+                           device=device)
+        try:
+            nccl = ".".join(map(str, torch.cuda.nccl.version()))
+            log(f"[mesh] NCCL {nccl}, backend {dist.get_backend()}, world "
+                f"size {dist.get_world_size()}")
+            mesh = make_mesh(1)
+            n = sizes[0]
+            s = build_bench_system((n, n, n), torch.float32, device)
+            s.optimize_density(mesh=mesh, **MESH_SOLVE)     # warm run
+            sync()
+            torch.cuda.reset_peak_memory_stats(device)
+            sc.launches = 0
+            t0 = time.perf_counter()
+            n_it, conv = s.optimize_density(mesh=mesh, **MESH_SOLVE)
+            sync()
+            t = time.perf_counter() - t0
+            launches = sc.launches
+            mib = torch.cuda.max_memory_allocated(device) / 2**20
+            E = s.energy("eV")
+            dE = abs(E - serial["E"]) / 4
+            log(f"[mesh] (a) {n}^3 f32 optimize_density(mesh=make_mesh(1)): "
+                f"iterations {n_it}, converged {conv}, E {E:.9f} eV, time to "
+                f"converge {t:.4f} s, {1e3 * t / max(n_it, 1):.3f} ms/iter, "
+                f"max memory allocated {mib:.1f} MiB, spectral_conv "
+                f"launches {launches}; serial [slice]: iterations "
+                f"{serial['n_it']}, {serial['t']:.4f} s, "
+                f"{1e3 * serial['t'] / max(serial['n_it'], 1):.3f} ms/iter "
+                f"(mesh / serial {t / serial['t']:.2f}x); |dE| {dE:.3e} "
+                f"eV/atom (bound 2e-5)")
+            checks["(a) converged"] = bool(conv)
+            checks["(a) energy"] = dE < 2e-5
+            checks["(a) iterations"] = abs(n_it - serial["n_it"]) <= 2
+            checks["(a) no spectral_conv launch"] = launches == 0
+            del s
+
+            n = sizes[1]
+            # off equilibrium (a stress well above the terms' cancellation)
+            # and with a displaced ion (forces)
+            geo = dict(cell=0.97 * 4.050 * SHEAR,
+                       frac=FCC + np.array([[0.01, 0.02, 0.0], [0, 0, 0],
+                                            [0, 0, 0], [0, 0, 0]]))
+            kw = dict(MESH_SOLVE, ntol=1e-10)
+            ser = build_bench_system((n, n, n), torch.float64, device,
+                                     **geo)
+            ser.optimize_density(**kw)
+            msh = build_bench_system((n, n, n), torch.float64, device,
+                                     **geo)
+            msh.optimize_density(mesh=mesh, **kw)
+            # forces and stress depend on the density at first order: the
+            # serial ones at the mesh's density
+            at = build_bench_system((n, n, n), torch.float64, device,
+                                    **geo)
+            at.set_density(msh.density())
+            rels = {"E": abs(msh.energy() - ser.energy()) / abs(ser.energy()),
+                    "forces": _rel(msh.forces(), at.forces()),
+                    "stress": _rel(msh.stress(), at.stress())}
+            log(f"[mesh] (b) {n}^3 f64, the G1 cell compressed 3%, ion 0 "
+                f"displaced, mesh vs serial: "
+                f"E of the two solves, forces and stress at the mesh "
+                f"solve's density: " + ", ".join(
+                    f"{k} rel {v:.3e}" for k, v in rels.items())
+                + f" (bound 1e-12); max |F| "
+                f"{float(at.forces().abs().max()):.3e} Ha/bohr, max |sigma| "
+                f"{float(at.stress().abs().max()):.3e} Ha/bohr^3")
+            checks["(b) E, forces, stress"] = max(rels.values()) < 1e-12
+            del ser, msh, at
+
+            n = sizes[2]
+            s = build_bench_system((n, n, n), torch.float64, device)
+            s.optimize_density(**dict(MESH_SOLVE, ntol=1e-10))
+            t0 = time.perf_counter()
+            K_ser = s.bulk_modulus("GPa")
+            t_ser = time.perf_counter() - t0
+            s.set_mesh(mesh)
+            t0 = time.perf_counter()
+            K_msh = s.bulk_modulus("GPa")
+            t_msh = time.perf_counter() - t0
+            rel = abs(K_msh - K_ser) / abs(K_ser)
+            log(f"[mesh] (c) {n}^3 f64 bulk modulus: mesh {K_msh:.9f} GPa "
+                f"({t_msh:.3f} s), serial {K_ser:.9f} GPa ({t_ser:.3f} s), "
+                f"rel {rel:.3e} (bound 1e-10)")
+            checks["(c) bulk modulus"] = rel < 1e-10
+            del s
+
+            n = sizes[3]
+            kw = dict(f=EOS_F, N=EOS_N, n_method="TPGD", n_step_size=1.0,
+                      ntol=NTOL, analytic=True, batched=True,
+                      dtype=torch.float32)
+            bmesh = make_mesh(1, batch=1)
+            t0 = time.perf_counter()
+            pm, _ = build_bench_system((n, n, n), torch.float64,
+                                       device).eos_fit(mesh=bmesh, **kw)
+            t_m = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ps, _ = build_bench_system((n, n, n), torch.float64,
+                                       device).eos_fit(**kw)
+            t_s = time.perf_counter() - t0
+            dK, dV = (abs(pm[i] - ps[i]) / abs(ps[i]) for i in (0, 3))
+            log(f"[mesh] (d) {n}^3 f32 batched eos_fit on a batch mesh: K0 "
+                f"{pm[0]:.6f} GPa, V0 {pm[3]:.9f} A^3/atom ({t_m:.3f} s); "
+                f"serial batched K0 {ps[0]:.6f}, V0 {ps[3]:.9f} "
+                f"({t_s:.3f} s); rel {dK:.3e}, {dV:.3e} (bound 1e-4)")
+            checks["(d) eos_fit on a batch mesh"] = dK < 1e-4 and dV < 1e-4
+        finally:
+            dist.destroy_process_group()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[mesh] failed: {failed}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1621,6 +1766,7 @@ def main():
     pme_launches = phase_pme(device)
     radial_launches = phase_radial(device, sync, res["E"])
     eos_launches, batched = phase_eos(device, sync)
+    mesh_launches = phase_mesh(device, sync, res)
 
     abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
@@ -1637,6 +1783,7 @@ def main():
         "nonlocal_launches": nl_launches,
         "second_launches": second_launches, "pme_launches": pme_launches,
         "radial_launches": radial_launches, "eos_launches": eos_launches,
+        "mesh_launches": mesh_launches,
         "batched_ms": batched["ms"], "batched_graph_ms": batched["graph_ms"],
         "batched_library_ms": batched["library_ms"],
         "batched_library_graph_ms": batched["library_graph_ms"],

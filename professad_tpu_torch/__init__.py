@@ -18,7 +18,9 @@ fit, the crystal cell generators, the elastic averages, linear response
 G^-1(eta), stress and pressure of a functional, the profiling hooks and
 the reference's drop-in module names (``functionals``,
 ``functional_tools``, ``ion_utils``, ``crystal_tools``,
-``elastic_tools``).  Multi-device runs are not ported (ROADMAP A11).
+``elastic_tools``), and the multi-device runs on ``torch.distributed``
+(``parallel``: one process per device, NCCL on the cards and gloo on the
+CPU; pencil FFTs and every mesh path of ``System``).
 Both Pallas kernel files of the JAX package have hand-written CUDA
 counterparts: the fused spectral convolution
 (``ops/spectral_conv.py``, ``csrc/spectral_conv.cu``), which the density

@@ -2,18 +2,20 @@
 particle-mesh Ewald (PME) structure factors, lattice sums and the
 real-space ion-ion interaction.
 
-PyTorch port of ``professad_tpu/models/ions.py`` for one device.  The PME
-charge spread is one ``index_add`` over the whole (order^3 x ions)
-stencil; its backward (forces, stress) is a gather.  On CUDA an f64
-``index_add`` accumulates with atomics, so the charge grid varies at
-rounding level from run to run.  The JAX package's matrix-unit spread
-(``_spread_mxu``) is TPU-specific: every ``method`` runs the scatter here.
-The pencil spread of multi-device runs is not ported (ROADMAP A11).
+PyTorch port of ``professad_tpu/models/ions.py``.  The PME charge spread
+is one ``index_add`` over the whole (order^3 x ions) stencil; its backward
+(forces, stress) is a gather.  On CUDA an f64 ``index_add`` accumulates
+with atomics, so the charge grid varies at rounding level from run to run.
+The JAX package's matrix-unit spread (``_spread_mxu``) is TPU-specific:
+every ``method`` runs the scatter here.  Under ``ops.grid.pencil_mode``
+``lattice_sum`` and both structure factors work on this rank's slab and
+k-pencil (``_spread_scatter_slab``: no halo exchange).
 """
 
 import numpy as np
 import torch
 
+from ..ops import grid as _grid
 from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn
 from ..ops.interp import interpolate
 from ..utils.constants import RECPOT_BOHR, RECPOT_POT_CONV
@@ -95,13 +97,22 @@ def structure_factor(box_vecs, shape, cart_ion_coords):
 def lattice_sum(box_vecs, shape, cart_ion_coords, f_tilde, order=None):
     """F(r) = irfftn(S(q) f~(q)) / vol with the unscaled inverse transform
     (``norm="forward"``); S is the exact structure factor, or the PME one
-    of B-spline ``order`` (even, >= 2)."""
+    of B-spline ``order`` (even, >= 2).  Under ``pencil_mode`` ``shape``
+    is the local slab's, and so is the result."""
     if order is None:
         S = structure_factor(box_vecs, shape, cart_ion_coords)
     else:
         if not (order % 2 == 0 and order >= 2):
             raise ValueError("PME requires an even order >= 2")
         S = structure_factor_spline(box_vecs, shape, cart_ion_coords, order)
+    group = _grid._PENCIL
+    if group is not None:
+        from ..parallel import pfft
+        from ..parallel.collectives import axis_size
+        n_glob = shape[0] * axis_size(group) * shape[1] * shape[2]
+        # norm="forward": the inverse transform is unscaled
+        return (n_glob * pfft.pirfftn_dc(S * f_tilde, shape, group)
+                / volume(box_vecs))
     return (torch.fft.irfftn(S * f_tilde, s=tuple(shape), norm="forward")
             / volume(box_vecs))
 
@@ -149,32 +160,66 @@ def _spread_scatter(shape, l0, l1, l2, M0, M1, M2):
     return Q.reshape(shape)
 
 
+def _spread_scatter_slab(local_shape, l0_local, l1, l2, M0, M1, M2):
+    """The charge spread of one rank's axis-0 slab: every rank runs the
+    same (order^3 x ions) stencil over the whole coordinates and keeps the
+    rows inside its slab (``l0_local`` in [0, N0/P)), as one masked
+    ``index_add``: rows outside add zero weight at index 0.  No halo
+    exchange; the backward is the matching masked gather."""
+    N0, N1, N2 = local_shape
+    w = (M0[:, None, None, :] * M1[None, :, None, :] * M2[None, None, :, :])
+    l0b = l0_local[:, None, None, :]
+    inside = (l0b >= 0) & (l0b < N0)
+    flat_idx = ((l0b * N1 + l1[None, :, None, :]) * N2
+                + l2[None, None, :, :])
+    flat_idx = torch.where(inside, flat_idx, 0)
+    w = torch.where(inside, w, 0.0)
+    Q = torch.zeros(N0 * N1 * N2, dtype=w.dtype, device=w.device)
+    Q = Q.index_add(0, flat_idx.reshape(-1), w.reshape(-1))
+    return Q.reshape(local_shape)
+
+
 def structure_factor_spline(box_vecs, shape, cart_ion_coords, order,
                             method="auto"):
     """Particle-mesh Ewald structure factor via cardinal B-splines on the
     rfftn half-spectrum grid: conj(B * rfftn(Q)), Q the spread charges.
-    ``method`` 'auto', 'scatter' and 'mxu' all run the scatter."""
+    ``method`` 'auto', 'scatter' and 'mxu' all run the scatter.  Under
+    ``pencil_mode`` ``shape`` is the local slab's: the spread is
+    ``_spread_scatter_slab``, the transform the pencil rfftn, and the
+    deconvolution factors are taken on this rank's k-pencil."""
     if method not in ("auto", "scatter", "mxu"):
         raise ValueError("method must be 'auto', 'scatter' or 'mxu'")
+    group = _grid._PENCIL
+    if group is not None:
+        from ..parallel.collectives import axis_size, axis_index
+        P, r = axis_size(group), axis_index(group)
+    else:
+        P, r = 1, 0
     N0, N1, N2 = shape
+    gshape = (N0 * P, N1, N2)
     frac = cart_ion_coords @ inv3x3(box_vecs)
     # wrap into [0, 1) twice, so that -1e-16 -> 1.0 -> 0.0
     frac = frac - torch.floor(frac)
     frac = frac - torch.floor(frac)
-    u = [frac[:, a] * n for a, n in enumerate(shape)]
+    u = [frac[:, a] * n for a, n in enumerate(gshape)]
     f = [torch.floor(ua) for ua in u]
     M0, M1, M2 = (cardinal_b_spline_values(ua - fa, order)
                   for ua, fa in zip(u, f))            # (order, ions)
     orders = torch.arange(order, device=frac.device)[:, None]
     l0, l1, l2 = (torch.remainder(orders - fa.to(torch.long), n)
-                  for fa, n in zip(f, shape))
-    Q_ft = rfftn(_spread_scatter(shape, l0, l1, l2, M0, M1, M2))
+                  for fa, n in zip(f, gshape))
+    if group is not None:
+        Q = _spread_scatter_slab(shape, l0 - r * N0, l1, l2, M0, M1, M2)
+    else:
+        Q = _spread_scatter(shape, l0, l1, l2, M0, M1, M2)
+    Q_ft = rfftn(Q)   # under pencil_mode: the k-pencil (N0 P, N1 / P, m2)
 
-    def b(axis, n):
-        m = torch.arange(Q_ft.shape[axis], dtype=cart_ion_coords.dtype,
-                         device=frac.device)
+    def b(axis, n, start=0):
+        m = torch.arange(start, start + Q_ft.shape[axis],
+                         dtype=cart_ion_coords.dtype, device=frac.device)
         return exponential_spline_b(m, n, order)
-    B = b(0, N0)[:, None, None] * b(1, N1)[None, :, None] \
+    B = b(0, gshape[0])[:, None, None] \
+        * b(1, N1, r * Q_ft.shape[1])[None, :, None] \
         * b(2, N2)[None, None, :]
     return torch.conj_physical(B * Q_ft)
 

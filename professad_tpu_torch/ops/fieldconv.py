@@ -10,8 +10,9 @@ axis at the spatially varying xi(r).
 The ladder is sized from the min / max of xi(r) on the host
 (``xi_ladder``); callers that need a fixed ladder (the optimizer paths,
 ``prepare``) pass it as ``xi_sparse``.  f32 transforms are DC-split per
-slab.  The pencil (multi-device) forms of the JAX package are not ported:
-``ops.grid.pencil_mode`` raises naming ROADMAP A11.
+slab.  Under ``ops.grid.pencil_mode`` the 4-D transforms are the pencil
+transforms of ``parallel.pfft``: the trailing ladder axis rides one batched
+all_to_all, and the DC split is taken per slab there too.
 """
 
 import numpy as np
@@ -58,11 +59,27 @@ def _irfftn3(X, shape):
     return torch.fft.irfftn(X, s=shape, dim=_GRID)
 
 
+def _pencil():
+    from . import grid
+    return grid._PENCIL
+
+
+def _conv(W, g, shape):
+    """irfftn(W * rfftn(g)[..., None]) over the grid axes, serial or (under
+    ``pencil_mode``) on this rank's slab and k-pencil."""
+    group = _pencil()
+    if group is not None:
+        from ..parallel import pfft
+        return pfft.pirfftn_dc(W * pfft.prfftn_dc(g, group)[..., None],
+                               g.shape, group)
+    return _irfftn3(W * _rfftn3(g)[..., None], shape)
+
+
 def ladder_convolution(W, g, shape):
     """irfftn(W * rfftn(g)[..., None]) over the grid axes: the field-
     dependent convolution with a precomputed (m1, m2, m3, L) slab stack W
-    (a term's hoisted kernel slabs)."""
-    return _irfftn3(W * _rfftn3(g)[..., None], shape)
+    (a term's hoisted kernel slabs; under ``pencil_mode`` its k-pencil)."""
+    return _conv(W, g, shape)
 
 
 def ladder_adjoint(W, B, shape):
@@ -70,6 +87,11 @@ def ladder_adjoint(W, B, shape):
     :func:`ladder_convolution` for real |k|-symmetric slabs (one batched
     forward transform of the weighted fields B (n1, n2, n3, L), the ladder
     contraction in k-space, one 3-D inverse)."""
+    group = _pencil()
+    if group is not None:
+        from ..parallel import pfft
+        return pfft.pirfftn_dc(torch.sum(W * pfft.prfftn_dc(B, group),
+                                         dim=-1), B.shape[:3], group)
     return _irfftn3(torch.sum(W * _rfftn3(B), dim=-1), shape)
 
 
@@ -103,12 +125,18 @@ def field_dependent_convolution(k, f_tilde, g, xis, kappa=None,
     grid; ``f_tilde(k, xi_sparse)`` -> (m1, m2, m3, n_xi), the kernel's
     transform at each ladder value; ``g`` and ``xis`` (n1, n2, n3).  The
     ladder is ``xi_sparse`` when given, else sized from xis with
-    ``kappa`` and ``mode``."""
+    ``kappa`` and ``mode``; under ``pencil_mode`` (k, g and xis local) it
+    must be given, since every rank has to take the same ladder."""
     if xi_sparse is None:
+        if _pencil() is not None:
+            raise NotImplementedError(
+                "field_dependent_convolution under ops.grid.pencil_mode "
+                "needs a precomputed static xi ladder (call the term's "
+                "prepare() first)")
         xi_sparse = xi_ladder(torch.min(xis).detach(),
                               torch.max(xis).detach(), kappa, mode)
     xi_sparse = torch.as_tensor(xi_sparse, dtype=g.dtype, device=g.device)
-    conv = _irfftn3(f_tilde(k, xi_sparse) * _rfftn3(g)[..., None], g.shape)
+    conv = _conv(f_tilde(k, xi_sparse), g, g.shape)
     return interpolate_kernel(xi_sparse, conv, xis)
 
 
@@ -123,7 +151,12 @@ def field_dependent_convolution_naive(k, f_tilde, g, xis, batch=512):
     over the stored half-spectrum (c_k = 1 on the t = 0 and, for even n3,
     Nyquist planes, 2 elsewhere), in blocks of ``batch`` points.  O(N^2)
     work: the cross-check oracle of the spline method, for coarse grids.
-    ``f_tilde`` must be real and elementwise in its first argument."""
+    ``f_tilde`` must be real and elementwise in its first argument.  It
+    has no pencil form."""
+    if _pencil() is not None:
+        raise NotImplementedError(
+            "field_dependent_convolution_naive has no pencil (distributed) "
+            "form; it cannot run under ops.grid.pencil_mode")
     shape = tuple(g.shape)
     n0, n1, n2 = shape
     m2 = n2 // 2 + 1

@@ -1,8 +1,7 @@
 """Reciprocal-space grid math: wavevectors, FFT derivatives, compensated means.
 
 PyTorch port of ``professad_tpu/ops/grid.py`` (all but the TPU-only
-transforms and the multi-device pencil mode).  Conventions kept from the
-JAX package:
+transforms).  Conventions kept from the JAX package:
 
 * ``wavevecs`` is a differentiable function of ``box_vecs``; the integer
   frequency tables are built on the box's device and dtype each call.
@@ -14,6 +13,10 @@ JAX package:
 * No in-place writes on values that may be traced: the DC fix-ups use the
   out-of-place ``torch.index_put``, so ``torch.func.jvp`` over
   ``torch.func.grad`` (the preconditioner HVP) goes through.
+* ``pencil_mode(group)`` redirects ``rfftn`` / ``irfftn`` / ``wavevecs`` /
+  ``qmean`` / ``wmean`` / ``spectral_convolution`` to the pencil-decomposed
+  forms of ``parallel.pfft`` on a ``torch.distributed`` group, so the
+  serial term bodies evaluate on axis-0 slabs of a distributed grid.
 """
 
 import numpy as np
@@ -80,7 +83,14 @@ def _freq_indices(shape, dtype, device):
 
 def wavevecs(box_vecs, shape):
     """Wavevectors kx, ky, kz, k2 on the rfftn half-spectrum grid;
-    differentiable with respect to ``box_vecs``."""
+    differentiable with respect to ``box_vecs``.  Under ``pencil_mode``
+    ``shape`` is the local slab's and the result this rank's k-pencil of
+    the global grid."""
+    if _PENCIL is not None:
+        from ..parallel import pfft
+        from ..parallel.collectives import axis_size
+        gshape = (shape[0] * axis_size(_PENCIL), shape[1], shape[2])
+        return pfft.pwavevecs(box_vecs, gshape, _PENCIL)
     b = 2.0 * np.pi * inv3x3(box_vecs.T)  # reciprocal lattice rows
     nA, nB, nC = _freq_indices(tuple(shape), box_vecs.dtype, box_vecs.device)
     kx = nA * b[0, 0] + nB * b[1, 0] + nC * b[2, 0]
@@ -116,6 +126,9 @@ def qmean(x):
     resolvable at the 1e-7 eV stopping rule); f64 input takes a plain mean.
     Only for terminal scalars: means that feed array arithmetic use
     :func:`wmean`, or they would upcast the graph."""
+    if _PENCIL is not None:
+        from ..parallel import pfft
+        return pfft.pqmean(x, _PENCIL)
     if x.dtype != torch.float32:
         return torch.mean(x)
     return _colsum_mean64(x)
@@ -125,6 +138,9 @@ def wmean(x):
     """Working-dtype accurate mean, for means that feed array arithmetic
     (N_tilde normalisation, chemical potential).  Same column-sum + f64
     combine as :func:`qmean`, cast back to the input dtype."""
+    if _PENCIL is not None:
+        from ..parallel import pfft
+        return pfft.pwmean(x, _PENCIL)
     if x.dtype != torch.float32:
         return torch.mean(x)
     return _colsum_mean64(x).to(x.dtype)
@@ -146,6 +162,9 @@ def rfftn(x):
     before the transform and the k=0 coefficient set from it exactly, so the
     f32 FFT cannot leak the DC amplitude into the lowest modes and uniform
     fields transform exactly."""
+    if _PENCIL is not None:
+        from ..parallel import pfft
+        return pfft.prfftn_dc(_pencil_3d(x), _PENCIL)
     if x.dtype == torch.float32 and x.ndim == 3:
         xm = torch.mean(x)
         h = torch.fft.rfftn(x - xm)
@@ -159,6 +178,9 @@ def irfftn(X, shape):
     spectra carry the k=0 coefficient around the transform as an exact
     uniform shift."""
     shape = tuple(shape)
+    if _PENCIL is not None:
+        from ..parallel import pfft
+        return pfft.pirfftn_dc(_pencil_3d(X), shape, _PENCIL)
     if X.dtype == torch.complex64 and X.ndim == 3:
         dc = X[0, 0, 0].real
         Xz = torch.index_put(X, _origin(X), X.new_zeros(1))
@@ -172,19 +194,60 @@ def spectral_convolution(kern, field, shape):
     dedicated-convolution primitive (WT kernel, vW Laplacian,
     preconditioner).  3-D fields go through ``ops.spectral_conv``, which
     launches the CUDA kernel for CUDA tensors and runs its ``torch.fft``
-    reference for CPU tensors."""
-    if field.ndim == 3:
+    reference for CPU tensors.  Under ``pencil_mode`` the field is a slab
+    of a distributed grid, which that kernel would take for a whole
+    periodic grid: the pencil transforms are composed instead
+    (``pfft.pconv_dc``, with the kernel's f32 DC split), as the JAX package
+    turns its Pallas convolution off there."""
+    if field.ndim == 3 and _PENCIL is None:
         from .spectral_conv import spectral_conv
         return spectral_conv(field, kern)
+    if field.ndim == 3:
+        from ..parallel import pfft
+        return pfft.pconv_dc(kern, field, shape, _PENCIL)
     return irfftn(kern * rfftn(field), shape)
 
 
-def pencil_mode(axis_name="grid"):
-    """The JAX package's pencil (multi-device) mode of the grid ops, under
-    which its field-dependent convolutions ride a batched all_to_all, is
-    not ported."""
-    raise NotImplementedError(
-        "pencil (multi-device) transforms are not ported yet: ROADMAP A11")
+_PENCIL = None   # the process group of the active pencil_mode
+
+
+def _pencil_3d(x):
+    if x.ndim != 3:
+        raise NotImplementedError(
+            "pencil mode transforms 3-D fields only; the ladder terms' 4-D "
+            "transforms go through ops.fieldconv's pencil forms")
+    return x
+
+
+class pencil_mode:
+    """Context under which the core spectral primitives run pencil-
+    decomposed on the "grid" group of a ``torch.distributed`` mesh
+    (``parallel.pfft``): ``rfftn`` / ``irfftn`` become pencil transforms
+    (one all_to_all each), ``wavevecs`` gives this rank's k-pencil,
+    ``qmean`` / ``wmean`` reduce over the group and
+    ``spectral_convolution`` composes the pencil transforms.  The serial
+    term bodies of ``models/`` then evaluate distributed on axis-0 slabs,
+    callers passing local shapes where the serial code passes whole ones;
+    the ladder terms' 4-D transforms ride one batched all_to_all
+    (``ops.fieldconv``).  ``group``: a process group, or a ``DeviceMesh``
+    with a "grid" axis.  Every rank of the group must run the same code
+    under it."""
+
+    def __init__(self, group):
+        if hasattr(group, "mesh_dim_names"):
+            group = group["grid"].get_group()
+        self.group = group
+
+    def __enter__(self):
+        global _PENCIL
+        self._prev = _PENCIL
+        _PENCIL = self.group
+        return self
+
+    def __exit__(self, *exc):
+        global _PENCIL
+        _PENCIL = self._prev
+        return False
 
 
 def spectral_resample(field, new_shape):

@@ -37,6 +37,13 @@ unit probe orthogonal to chi^, as in the JAX package.
 this process; after each solve of the first two routes one more
 Hessian-vector product measures |A x - b| / |b|, and a value above
 ``check_tol`` prints the JAX package's warning to stderr.
+
+``ground_state_hessian(..., group=)`` runs SPMD on a ``torch.distributed``
+group: chi is this rank's slab, ``energy_fn`` returns the replicated
+global energy, and each rank differentiates its share of it
+(``parallel/collectives.py``): inner products and norms are psum'd, and
+the derivatives with respect to theta (held whole on every rank) are the
+psum of the ranks' parts.
 """
 
 import sys
@@ -58,25 +65,53 @@ def _warn_residual(rel, tol):
           f"conditioning.", file=sys.stderr, flush=True)
 
 
-def _dot(u, v):
-    return torch.sum(u * v)
+def _dot(u, v, group=None):
+    s = torch.sum(u * v)
+    if group is None:
+        return s
+    from ..parallel.collectives import psum
+    return psum(s, group)
 
 
-def _project(v, chihat):
-    return v - _dot(chihat, v) * chihat
+def _norm(v, group=None):
+    if group is None:
+        return torch.linalg.norm(v)
+    return torch.sqrt(_dot(v, v, group))
 
 
-def _probe(chihat):
+def _project(v, chihat, group=None):
+    return v - _dot(chihat, v, group) * chihat
+
+
+def _roll1(x, group=None):
+    """``torch.roll(x, 1)`` of the flattened vector; on a group, of the
+    global vector whose row-major blocks the ranks hold."""
+    r = torch.roll(x, 1)
+    if group is None:
+        return r
+    from ..parallel.collectives import all_gather, axis_index, axis_size
+    lasts = all_gather(x.reshape(-1)[-1:], 0, group)
+    r = r.reshape(-1).clone()
+    r[0] = lasts[(axis_index(group) - 1) % axis_size(group)]
+    return r.reshape(x.shape)
+
+
+def _probe(chihat, group=None):
     """Unit probe orthogonal to chi^: chi^ rolled by one, or where that
     degenerates (a near-uniform chi) a sinusoidal grid vector."""
-    v0 = _project(torch.roll(chihat, 1), chihat)
-    nrm = torch.linalg.norm(v0)
+    v0 = _project(_roll1(chihat, group), chihat, group)
+    nrm = _norm(v0, group)
     if float(nrm) > 1e-7:
         return v0 / (nrm + 1e-300)
-    alt = torch.sin(torch.arange(chihat.numel(), dtype=chihat.dtype,
-                                 device=chihat.device)).reshape(chihat.shape)
-    alt = _project(alt, chihat)
-    return alt / (torch.linalg.norm(alt) + 1e-300)
+    start = 0
+    if group is not None:
+        from ..parallel.collectives import axis_index
+        start = axis_index(group) * chihat.numel()
+    alt = torch.sin(torch.arange(start, start + chihat.numel(),
+                                 dtype=chihat.dtype, device=chihat.device)
+                    ).reshape(chihat.shape)
+    alt = _project(alt, chihat, group)
+    return alt / (_norm(alt, group) + 1e-300)
 
 
 def _flatten(tree):
@@ -124,24 +159,28 @@ class _ChiHessian:
 class _Solver:
     """The shifted, preconditioned solve A x = rhs, A = H + c chi^ chi^T."""
 
-    def __init__(self, chihat, cg_tol, cg_maxiter, precond, check_tol):
+    def __init__(self, chihat, cg_tol, cg_maxiter, precond, check_tol,
+                 group=None):
         self.chihat = chihat
         self.cg_tol, self.cg_maxiter = cg_tol, cg_maxiter
         self.precond, self.check_tol = precond, check_tol
+        self.group = group
         self.shift = None
 
     def __call__(self, hvp, rhs):
-        chihat = self.chihat
+        chihat, group = self.chihat, self.group
         if self.shift is None:
-            self.shift = float(torch.linalg.norm(hvp(_probe(chihat)))) + 1e-30
+            self.shift = float(_norm(hvp(_probe(chihat, group)),
+                                     group)) + 1e-30
 
         def matvec(v):
-            return hvp(v) + self.shift * _dot(chihat, v) * chihat
-        x, k = cg(matvec, rhs, self.cg_tol, self.cg_maxiter, self.precond)
+            return hvp(v) + self.shift * _dot(chihat, v, group) * chihat
+        x, k = cg(matvec, rhs, self.cg_tol, self.cg_maxiter, self.precond,
+                  group=group)
         rel = None
         if self.check_tol is not None:
-            rel = float(torch.linalg.norm(matvec(x) - rhs)
-                        / (torch.linalg.norm(rhs) + 1e-300))
+            rel = float(_norm(matvec(x) - rhs, group)
+                        / (_norm(rhs, group) + 1e-300))
             if rel > self.check_tol:
                 _warn_residual(rel, self.check_tol)
         solves.append((k, rel))
@@ -205,7 +244,8 @@ def implicit_ground_state(energy_fn, chi_opt, args=(), cg_tol=1e-12,
 
 
 def ground_state_hessian(energy_fn, chi_opt, theta, rows=None, cg_tol=1e-12,
-                         cg_maxiter=2000, precond=None, check_tol=1e-6):
+                         cg_maxiter=2000, precond=None, check_tol=1e-6,
+                         group=None):
     """First derivative and Hessian rows of the ground-state energy
     Ebar(theta) = E(chi*(theta), theta) at the converged ``chi_opt``.
 
@@ -214,16 +254,24 @@ def ground_state_hessian(energy_fn, chi_opt, theta, rows=None, cg_tol=1e-12,
     default).  Returns (dE/dtheta at fixed chi, shape (m,); the rows
     d2Ebar/dtheta_i dtheta_j = E_ij + b_j . u_i, shape (len(rows), m)),
     with b_i = P d/dtheta_i grad_chi E and u_i = -P A^{-1} b_i: one CG
-    solve per row."""
+    solve per row.  ``group``: SPMD mode (module docstring), ``chi_opt``
+    this rank's slab."""
+    from ..parallel.collectives import psum, rank_share
+
+    def total(part):
+        return part if group is None else psum(part, group)
+
     chi = chi_opt.detach().requires_grad_(True)
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
         E = energy_fn(chi, th)
+        if group is not None:
+            E = rank_share(E, group)
         g_chi, g_th = torch.autograd.grad(E, (chi, th), create_graph=True)
     g_th = g_th.reshape(-1)
     m = g_th.numel()
-    chihat = chi.detach() / torch.linalg.norm(chi.detach())
-    solve = _Solver(chihat, cg_tol, cg_maxiter, precond, check_tol)
+    chihat = chi.detach() / _norm(chi.detach(), group)
+    solve = _Solver(chihat, cg_tol, cg_maxiter, precond, check_tol, group)
 
     def grad_or_zero(out, wrt):
         with torch.enable_grad():
@@ -238,12 +286,13 @@ def ground_state_hessian(energy_fn, chi_opt, theta, rows=None, cg_tol=1e-12,
     rows = list(range(m)) if rows is None else list(rows)
     out = torch.empty((len(rows), m), dtype=g_th.dtype, device=g_th.device)
     for a, i in enumerate(rows):
-        b = _project(grad_or_zero(g_th[i], chi), chihat)
-        u = _project(solve(hvp, -b), chihat)
+        b = _project(grad_or_zero(g_th[i], chi), chihat, group)
+        u = _project(solve(hvp, -b), chihat, group)
         with torch.enable_grad():
+            # on a group: this rank's part of the row's objective
             mixed = g_th[i] + _dot(g_chi, u)
-        out[a] = grad_or_zero(mixed, th).reshape(-1)
-    return g_th.detach(), out
+        out[a] = total(grad_or_zero(mixed, th).reshape(-1))
+    return total(g_th.detach()), out
 
 
 class _LinearSolve(torch.autograd.Function):

@@ -32,6 +32,16 @@ stagnation damping and the best-iterate choice need), per block of
 then runs in float64, exactly as the JAX package's f64 scalar logic.
 Everything else stays on the device with no further synchronisation.
 Capturing the iteration in a CUDA graph is later work.
+
+SPMD mode (``group=``, the JAX package's ``axis_name``): ``x0`` is this
+rank's block of a variable split over a ``torch.distributed`` group, and
+``value_and_grad`` returns (the global energy, the local gradient block).
+Every inner product and gradient sum is psum'd over the group, and the
+host rule reads the energy the group's first rank holds
+(``collectives.broadcast_scalar``), so the stopping rule, the damping and
+the best iterate take the same branch on every rank: a rank that stopped
+one iteration early would leave the others waiting in the next
+collective.
 """
 
 from typing import NamedTuple
@@ -72,12 +82,30 @@ def lbfgs_init(value_and_grad, x0, history=8):
         t_prev=torch.zeros((), **z), d_prev=torch.zeros_like(x0), n_iter=0)
 
 
+def _sum(x, group=None):
+    """Full sum of ``x``, psum'd over ``group`` in SPMD mode."""
+    s = torch.sum(x)
+    if group is None:
+        return s
+    from ..parallel.collectives import psum
+    return psum(s, group)
+
+
+def _host(f, group=None):
+    """The scalar ``f`` on the host; in SPMD mode the group's first rank's
+    value, the same on every rank."""
+    if group is None:
+        return f.item()
+    from ..parallel.collectives import broadcast_scalar
+    return broadcast_scalar(f, group)
+
+
 def _push(buf, v):
     """Drop the oldest entry, append ``v`` (buffers stay oldest-first)."""
     return torch.cat([buf[1:], v.unsqueeze(0)])
 
 
-def _two_loop(g, S, Y, rho, H_diag, M=None):
+def _two_loop(g, S, Y, rho, H_diag, M=None, group=None):
     """Two-loop recursion d = -H g over the masked ring buffers, oldest
     first; ``M`` applies a preconditioner as the initial inverse Hessian
     (r = H_diag M q).  Empty slots have rho = 0 and drop out."""
@@ -85,16 +113,17 @@ def _two_loop(g, S, Y, rho, H_diag, M=None):
     q = -g
     al = [None] * history
     for idx in range(history - 1, -1, -1):
-        al[idx] = rho[idx] * torch.sum(S[idx] * q)
+        al[idx] = rho[idx] * _sum(S[idx] * q, group)
         q = q - al[idx] * Y[idx]
     r = H_diag * (q if M is None else M(q))
     for i in range(history):
-        be = rho[i] * torch.sum(Y[i] * r)
+        be = rho[i] * _sum(Y[i] * r, group)
         r = r + (al[i] - be) * S[i]
     return r
 
 
-def lbfgs_iterations(value_and_grad, state, num_iters, lr, apply_H0=None):
+def lbfgs_iterations(value_and_grad, state, num_iters, lr, apply_H0=None,
+                     group=None):
     """Run ``num_iters`` L-BFGS iterations (one outer step of the host
     loop).  No host synchronisation: the curvature filter is a
     ``torch.where`` selection on 0-d tensors, and whether a step is the
@@ -107,18 +136,20 @@ def lbfgs_iterations(value_and_grad, state, num_iters, lr, apply_H0=None):
         if first:
             S_new, Y_new, rho_new, H_new = st.S, st.Y, st.rho, st.H_diag
             d = -(st.g if apply_H0 is None else apply_H0(st.g))
-            t = torch.clamp(1.0 / torch.sum(torch.abs(st.g)), max=1.0) * lr
+            t = torch.clamp(1.0 / _sum(torch.abs(st.g), group),
+                            max=1.0) * lr
         else:
-            ys = torch.sum(y * s)
-            accept = ys > 1e-10 * torch.sum(s * s)
+            ys = _sum(y * s, group)
+            accept = ys > 1e-10 * _sum(s * s, group)
             S_new = torch.where(accept, _push(st.S, s), st.S)
             Y_new = torch.where(accept, _push(st.Y, y), st.Y)
             inv = torch.where(ys != 0, 1.0 / torch.where(ys != 0, ys, 1.0),
                               0.0)
             rho_new = torch.where(accept, _push(st.rho, inv), st.rho)
-            yMy = torch.sum(y * (y if apply_H0 is None else apply_H0(y)))
+            yMy = _sum(y * (y if apply_H0 is None else apply_H0(y)), group)
             H_new = torch.where(accept, ys / yMy, st.H_diag)
-            d = _two_loop(st.g, S_new, Y_new, rho_new, H_new, apply_H0)
+            d = _two_loop(st.g, S_new, Y_new, rho_new, H_new, apply_H0,
+                          group)
             t = torch.full((), lr, dtype=st.x.dtype, device=st.x.device)
         x_new = st.x + t * d
         f_new, g_new = value_and_grad(x_new)
@@ -131,7 +162,7 @@ def lbfgs_iterations(value_and_grad, state, num_iters, lr, apply_H0=None):
 
 def lbfgs_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
                    max_iter=1000, history=8, f_scale=1.0, skip_iters=5,
-                   apply_H0=None, block=6, stop_fn=None):
+                   apply_H0=None, block=6, stop_fn=None, group=None):
     """L-BFGS in blocks of ``block`` iterations to convergence.
 
     The convergence measure is evaluated once per outer step (one block)
@@ -139,18 +170,19 @@ def lbfgs_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     ``conv_count`` consecutive outer steps, checked only after
     ``skip_iters`` outer steps.  ``max_iter`` counts outer steps.
     ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the default measure
-    ``|dE| * f_scale``.  Returns (state, n_outer_steps, converged)."""
+    ``|dE| * f_scale``; ``group``: SPMD mode (module docstring).  Returns
+    (state, n_outer_steps, converged)."""
     st = lbfgs_init(value_and_grad, x0, history)
     f_prev = st.f
     cnt = it = 0
     while cnt < conv_count and it < max_iter:
         st = lbfgs_iterations(value_and_grad, st, block, lr,
-                              apply_H0=apply_H0)
+                              apply_H0=apply_H0, group=group)
         if stop_fn is None:
             stop_var = torch.abs(st.f - f_prev) * f_scale
         else:
             stop_var = stop_fn(st, f_prev)
-        hit = it + 1 > skip_iters and float(stop_var) < ntol
+        hit = it + 1 > skip_iters and _host(stop_var, group) < ntol
         cnt = cnt + 1 if hit else 0
         f_prev = st.f
         it += 1
@@ -192,7 +224,8 @@ def tpgd_step(value_and_grad, lr, state):
                      s_prev=x_new - state.x, n_iter=state.n_iter + 1)
 
 
-def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0):
+def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0,
+                   group=None):
     """One (preconditioned) TPGD update.  ``scale`` damps the BB step.
 
     The preconditioner is applied ONCE per iteration: M is linear, so
@@ -207,10 +240,10 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0):
     d = -Mg
     if st.n_iter == 0:
         # first step: gradient-magnitude-calibrated
-        t = torch.clamp(1.0 / torch.sum(torch.abs(d)), max=1.0) * lr
+        t = torch.clamp(1.0 / _sum(torch.abs(d), group), max=1.0) * lr
     else:
-        ys = torch.sum(y * st.s_prev)
-        yMy = torch.sum(y * My)
+        ys = _sum(y * st.s_prev, group)
+        yMy = _sum(y * My, group)
         # non-positive curvature falls back to an lr-scaled step
         H = torch.where(ys <= 0.0, lr, ys / torch.where(yMy != 0, yMy, 1.0))
         t = H * scale
@@ -224,11 +257,11 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0):
 
 def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
                   max_iter=1000, f_scale=1.0, skip_iters=2, apply_H0=None,
-                  stop_fn=None):
+                  stop_fn=None, group=None):
     """Preconditioned TPGD to convergence.  Returns (state, n_iters,
     converged).  ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the
     default convergence measure ``|dE| * f_scale`` (one more scalar read
-    per iteration).
+    per iteration); ``group``: SPMD mode (module docstring).
 
     Stagnation damping: after ``_STAG_K`` consecutive iterations without a
     new best energy by more than the dtype's resolution (8 eps |f_best|),
@@ -243,15 +276,15 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     zeros = torch.zeros_like(g0)
     st = TPGDState(x=x0, f=f0, g=g0, g_prev=g0, Mg_prev=zeros,
                    s_prev=zeros, n_iter=0)
-    f_prev = f0.item()
+    f_prev = _host(f0, group)
     f_best, f_best_t, x_best = f_prev, f0, x0
     cnt = it = stag = 0
     damp = 1.0
     while cnt < conv_count and it < max_iter:
         f_prev_t = st.f
         st = tpgd_iteration(value_and_grad, st, lr, apply_H0=apply_H0,
-                            scale=damp)
-        f_new = st.f.item()
+                            scale=damp, group=group)
+        f_new = _host(st.f, group)
         tol_stag = 8.0 * eps * max(abs(f_best), 1.0)
         improved = f_best - f_new > tol_stag
         if f_new < f_best:
@@ -261,7 +294,7 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
             damp *= 0.5
             stag = 0
         stop_var = (abs(f_new - f_prev) * f_scale if stop_fn is None
-                    else float(stop_fn(st, f_prev_t)))
+                    else _host(stop_fn(st, f_prev_t), group))
         hit = it + 1 > skip_iters and stop_var < ntol
         cnt = cnt + 1 if hit else 0
         it += 1
@@ -271,16 +304,17 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     return st, it, cnt >= conv_count
 
 
-def cg(matvec, b, tol=1e-12, maxiter=2000, M=None):
+def cg(matvec, b, tol=1e-12, maxiter=2000, M=None, group=None):
     """Solve ``matvec(x) = b`` for a symmetric positive definite operator
     by preconditioned conjugate gradients from x = 0, stopping when
     |r| <= tol |b| or after ``maxiter`` iterations: the iteration and the
     stopping rule of ``jax.scipy.sparse.linalg.cg`` (the residual norm,
     not the preconditioned one, is tested when ``M`` is given).  A host
     loop that reads one scalar an iteration, so it runs outside every
-    ``torch.func`` transform.  Returns (x, iterations)."""
+    ``torch.func`` transform.  ``group``: SPMD mode (the inner products
+    psum'd).  Returns (x, iterations)."""
     def dot(u, v):
-        return torch.sum(u * v)
+        return _sum(u * v, group)
 
     bs = float(dot(b, b))
     atol2 = tol * tol * bs

@@ -14,10 +14,24 @@ constants, force constants) and the ground-state properties
 differentiable with respect to a trainable functional's parameters
 (``gs_property_fn``, ``gs_volume_property_fn``), the geometry relaxations
 (``optimize_geometry``, ``optimize_parameterized_geometry``) with their
-host optimizers, checkpoints, ``set_device``, and the EOS scan
-(``eos_fit``): serial, or all volumes at once as lanes of one vmapped
-solve (``batched=True``).  Not ported yet: multi-device runs (ROADMAP
-A11).
+host optimizers, checkpoints, ``set_device``, the EOS scan (``eos_fit``):
+serial, or all volumes at once as lanes of one vmapped solve
+(``batched=True``), and the multi-device (mesh) paths.
+
+Multi-device runs (``set_mesh``, ``optimize_density(mesh=)``) are SPMD on
+``torch.distributed``: one process per device, every rank building the
+same System and calling the same methods (``parallel/mesh.py``).  Each rank
+keeps the whole float64 state; set-up (recpot tables, structure factor,
+v_ext, the preconditioner kernel M(k)) is computed whole and sliced, as the
+JAX package computes it globally and places it with a sharding.  The
+distributed work runs on each rank's axis-0 slab of every field and axis-1
+k-pencil of every spectrum (``parallel/pfft.py``, ``ops.grid.pencil_mode``):
+the density solve, the energy, forces and stress, the Hessian solves of
+the second derivatives and the geometry gradients.  ``optimize_density``
+all-gathers the converged slab once, at its end, so the getters of whole
+fields (``density()`` and the like) are local reads of a state that every
+rank holds alike.  Energies, forces and stress are all-reduced, so every
+rank returns the same values.
 
 Precision: the state (cell, ion coordinates, density, v_ext) is held in
 float64 on ``device`` (``None`` means ``cuda:0``; pass ``device="cpu"`` for
@@ -83,6 +97,7 @@ class System:
         self._Eion_cache = None
         self._shifts = None
         self._shifts_key = None
+        self._mesh = None
 
         self.set_lattice(box_vecs, units, initialization=True)
         self._process_ions(ions, coord_type, units)
@@ -180,10 +195,12 @@ class System:
         k_safe = torch.where(nz, ks_interp, 1.0)
         return torch.where(nz, interp - 4.0 * np.pi * z / k_safe**2, interp)
 
-    def _potential_from_ions(self, box_vecs, cart_ion_coords):
+    def _potential_from_ions(self, box_vecs, cart_ion_coords, shape=None):
         """v_ext(r) from the recpot tables; differentiable with respect to
-        (box_vecs, cart_ion_coords)."""
-        shape = self._shape
+        (box_vecs, cart_ion_coords).  ``shape``: the grid to build on (the
+        System's by default; under ``ops.grid.pencil_mode`` the local slab
+        shape, and the result is this rank's slab)."""
+        shape = self._shape if shape is None else tuple(shape)
         _, _, _, k2 = wavevecs(box_vecs, shape)
         k = safe_sqrt(k2)
         v_ext = torch.zeros(shape, dtype=box_vecs.dtype,
@@ -289,11 +306,42 @@ class System:
                 owner.set_device(dev)
 
     def set_mesh(self, mesh):
-        """Multi-device runs are not ported; ``None`` (no mesh) is the only
-        setting."""
+        """Attach (or detach, with None) a ``DeviceMesh`` with a "grid" axis
+        (``parallel.make_mesh``).  With a mesh attached the energy,
+        ``forces()``, ``stress()``, the pressure, enthalpy and second
+        derivatives, and the geometry relaxations' gradients and density
+        re-optimizations run distributed over its "grid" axis (every rank
+        must then call them).  ``optimize_density(mesh=...)`` attaches its
+        mesh."""
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device runs are not ported yet: ROADMAP A11")
+            _check_mesh(mesh)
+        if mesh is not None and self._shape[0] % mesh["grid"].size():
+            raise ValueError(
+                f"grid axis 0 ({self._shape[0]}) must divide by the mesh "
+                f"'grid' size {mesh['grid'].size()}")
+        self._mesh = mesh
+
+    # -- the mesh's slabs ------------------------------------------------
+
+    def _pencil_local_shape(self, mesh):
+        from .parallel.mesh import grid_group
+        _, n_dev, _ = grid_group(mesh)
+        if self._shape[0] % n_dev or self._shape[1] % n_dev:
+            raise ValueError(
+                f"pencil decomposition needs grid axes 0 and 1 divisible "
+                f"by the mesh 'grid' size {n_dev}; got {self._shape}")
+        return (self._shape[0] // n_dev, self._shape[1], self._shape[2])
+
+    def _slab(self, x, mesh):
+        """This rank's axis-0 slab of a whole field."""
+        from .parallel.mesh import grid_sharding
+        return grid_sharding(mesh)(x)
+
+    def _den_sharded(self, mesh):
+        return self._slab(self._den, mesh)
+
+    def _chi_sharded(self, mesh):
+        return self._slab(self._gs_chi(), mesh)
 
     # ------------------------------------------------------------------
     # getters
@@ -348,7 +396,9 @@ class System:
             UserWarning, stacklevel=3)
 
     def density(self, requires_grad=False):
-        """Electron density (float64, on the system's device);
+        """Electron density (float64, on the system's device), the whole
+        grid on every rank of a meshed System (gathered where a mesh
+        solve ends, so reading it is not a collective);
         ``requires_grad=True`` warns (see ``gs_property_fn``)."""
         if requires_grad:
             self._warn_requires_grad("density")
@@ -660,12 +710,31 @@ class System:
     def _compute_energy(self, for_den_opt=False):
         """Total energy of the stored state: density terms, plus ion-ion
         unless ``for_den_opt``.  No graph: a trainable term's parameters
-        would otherwise tie one to the stored energy."""
-        E = self._density_terms_energy(self._box_vecs, self._den, self._v_ext,
-                                       static=False)
+        would otherwise tie one to the stored energy.  With a mesh attached
+        the density terms run distributed (collective), with the term-aux
+        hoists on the k-pencils where the terms have them, as the JAX
+        package's mesh branch does."""
+        if self._mesh is not None:
+            E = self._mesh_terms_energy(self._mesh)
+        else:
+            E = self._density_terms_energy(self._box_vecs, self._den,
+                                           self._v_ext, static=False)
         if self._has_ion_ion() and not for_den_opt:
             E = E + self._ion_ion_energy()
         return E
+
+    def _mesh_terms_energy(self, mesh):
+        """The density terms of the stored state on the mesh: this rank's
+        slabs through ``pfft.penergy_terms``; the replicated sum."""
+        from .parallel.mesh import grid_group
+        from .parallel import pfft
+        group, _, _ = grid_group(mesh)
+        self._pencil_local_shape(mesh)
+        aux = pfft.aux_pencil_specs(self._collect_term_aux(), group)
+        return pfft.penergy_terms(self._terms, self._box_vecs,
+                                  self._den_sharded(mesh),
+                                  self._slab(self._v_ext, mesh), group,
+                                  aux=aux)
 
     def _ion_ion_energy(self):
         """Ion-ion energy of the stored cell and ions (sets the cache)."""
@@ -708,11 +777,22 @@ class System:
         autograd gradient; the energy is still the terms' own, and no
         preconditioner is applied, as in the JAX package.
 
-        ``mesh=`` (multi-device runs) is not ported and raises.  Returns
-        (outer steps, converged)."""
+        ``mesh=`` (a ``DeviceMesh`` with a "grid" axis; every rank calls
+        with the same arguments) runs the whole optimization distributed
+        over the mesh's "grid" axis (``parallel.pfft.pencil_tpgd_minimize``:
+        pencil FFTs, psum'd inner products, the host rule on the same
+        all-reduced energy on every rank), TPGD or L-BFGS, with the fused
+        analytic gradient (``analytic=True``) or autograd of the serial
+        term bodies under ``pencil_mode``; the ladder terms take their
+        prepared ladder and hoisted slabs on the k-pencils.  It needs
+        ``jit_loop=True`` and ``conv_target="dE"`` and takes no
+        ``potentials``; ``precondition=None`` means True there (an explicit
+        False is honoured), and the default ``block=6`` means a check every
+        L-BFGS iteration.  The mesh stays attached (``set_mesh``), and the
+        converged density is gathered to every rank.  Returns (outer
+        steps, converged)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device runs are not ported yet: ROADMAP A11")
+            self._check_mesh_run(mesh, jit_loop, potentials, conv_target)
         if n_method not in ("LBFGS", "TPGD"):
             raise ValueError("n_method must be 'LBFGS' or 'TPGD'")
         if conv_target not in ("dE", "dEdchi", "euler"):
@@ -753,6 +833,20 @@ class System:
         else:
             vg_auto = lambda x: self._chi_value_and_grad_potentials(
                 x, box, v_ext, N_elec, potentials)
+        if mesh is not None:
+            from .parallel.pfft import pencil_tpgd_minimize
+            from .parallel.mesh import gather_grid
+            M = (self._precond_kernel(box, N_elec, aux)
+                 if precondition is not False else None)
+            state, n_it, conv = pencil_tpgd_minimize(
+                mesh, self._shape, box, v_ext, N_elec, chi0, M,
+                lr=n_step_size, ntol=ntol, conv_count=n_conv_cond_count,
+                max_iter=round(n_maxiter), skip_iters=skip_iters,
+                f_scale=EV_PER_HA, method=n_method, terms=self._terms,
+                aux=aux, analytic=analytic, block=1 if block == 6 else block)
+            state = state._replace(x=gather_grid(
+                state.x.reshape(self._pencil_local_shape(mesh)), mesh))
+            return self._store_optimized(state, n_it, conv, n_verbose)
         # the host loop's TPGD step and the potentials path take no
         # preconditioner
         aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec, aux))
@@ -776,6 +870,27 @@ class System:
             state, n_it, conv = self._host_loop(
                 vg_auto, chi0, n_method, n_step_size, aH0, ntol,
                 n_conv_cond_count, round(n_maxiter), conv_target, n_verbose)
+        return self._store_optimized(state, n_it, conv, n_verbose)
+
+    def _check_mesh_run(self, mesh, jit_loop, potentials, conv_target):
+        """The arguments ``optimize_density(mesh=)`` rejects; attaches the
+        mesh."""
+        if not jit_loop:
+            raise ValueError("mesh= requires jit_loop=True")
+        self.set_mesh(mesh)
+        if potentials is not None:
+            raise ValueError(
+                "mesh= supports autodiff or fused analytic gradients only, "
+                "not a user-supplied potentials closure")
+        if conv_target != "dE":
+            raise ValueError(
+                "mesh= supports conv_target='dE' only (the dEdchi/euler "
+                f"measures have no distributed form; got {conv_target!r})")
+
+    def _store_optimized(self, state, n_it, conv, verbose):
+        """Store an optimization's result: the density from chi, and the
+        solver's energy (a direct evaluation with a ``prepare`` term) plus
+        the ion-ion energy."""
         self._set_den_from_chi(state.x)
         E = state.f.to(_F64)
         if self._prepare_terms():
@@ -791,7 +906,7 @@ class System:
                     self._ion_ion_energy()
             E = E + self._Eion_cache
         self._ene = E
-        if n_verbose:
+        if verbose:
             word = "successfully converged" if conv else "failed to converge"
             print(f"Density optimization {word} in {n_it} step(s)\n")
         return n_it, conv
@@ -916,6 +1031,8 @@ class System:
         raise ValueError("units must be 'Ha/b' or 'eV/a'")
 
     def _compute_forces(self):
+        if self._mesh is not None:
+            return self._compute_forces_mesh(self._mesh)
         box = self._box_vecs
         cart = (self._frac_ion_coords @ box).detach().requires_grad_(True)
         U = torch.zeros((), dtype=_F64, device=self._device)
@@ -929,6 +1046,34 @@ class System:
                 return torch.zeros_like(cart)
             (g,) = torch.autograd.grad(U, cart)
         return -g
+
+    def _compute_forces_mesh(self, mesh):
+        """Distributed Hellmann-Feynman forces: the ion-electron energy with
+        v_ext rebuilt on each rank's slab (its structure factor on the
+        k-pencil) plus the grid-free ion-ion sum, differentiated with
+        respect to the coordinates every rank holds whole: each rank
+        differentiates its share, and the forces are the psum of the
+        parts, the same on every rank."""
+        from .ops.grid import pencil_mode
+        from .parallel.mesh import grid_group
+        from .parallel.collectives import psum, rank_share
+        group, _, _ = grid_group(mesh)
+        local = self._pencil_local_shape(mesh)
+        box = self._box_vecs
+        cart = (self._frac_ion_coords @ box).detach().requires_grad_(True)
+        U = torch.zeros((), dtype=_F64, device=self._device)
+        with torch.enable_grad():
+            if self._needs_vext():
+                with pencil_mode(group):
+                    U = U + IonElectron(box, self._den_sharded(mesh),
+                                        self._potential_from_ions(
+                                            box, cart, local))
+            if self._has_ion_ion():
+                U = U + self._ion_ion_interaction(box, cart)
+            if not U.requires_grad:
+                return torch.zeros_like(cart)
+            (g,) = torch.autograd.grad(rank_share(U, group), cart)
+        return -psum(g, group)
 
     def stress(self, units="Ha/b3"):
         """sigma = sym((dE/dh)^T h) / vol, with the density rescaled by
@@ -949,6 +1094,8 @@ class System:
         raise ValueError("units must be 'Ha/b3', 'eV/a3' or 'GPa'")
 
     def _compute_stress(self):
+        if self._mesh is not None:
+            return self._compute_stress_mesh(self._mesh)
         box0 = self._box_vecs
         vol0 = self.volume("b3")
         frac = self._frac_ion_coords
@@ -964,6 +1111,78 @@ class System:
         stress = dEdh.T @ box0 / vol0
         return 0.5 * (stress + stress.T)
 
+    def _compute_stress_mesh(self, mesh):
+        """Distributed stress: the density-term energy (density rescaled by
+        vol0 / vol(h), v_ext rebuilt on the slabs through the pencil
+        wavevectors, the serial term bodies under ``pencil_mode``)
+        plus the grid-free ion-ion sum, differentiated with respect to the
+        cell every rank holds whole: the psum of the ranks' parts."""
+        from .parallel.mesh import grid_group
+        from .parallel.collectives import psum, rank_share
+        group, _, _ = grid_group(mesh)
+        box0 = self._box_vecs
+        vol0 = self.volume("b3")
+        frac = self._frac_ion_coords
+        energy = self._mesh_chi_energy_body(mesh, normalise=False)
+        with torch.enable_grad():
+            h = box0.detach().clone().requires_grad_(True)
+            den = self._den_sharded(mesh) * vol0 / volume(h)
+            E = energy(den, h, frac @ h)
+            if self._has_ion_ion():
+                E = E + self._ion_ion_interaction(h, frac @ h)
+            (dEdh,) = torch.autograd.grad(rank_share(E, group), h)
+        dEdh = psum(dEdh, group)
+        stress = dEdh.T @ box0 / vol0
+        return 0.5 * (stress + stress.T)
+
+    def _mesh_chi_energy_body(self, mesh, normalise=True):
+        """``energy(chi_local, h, cart)``: the density-term energy on the
+        mesh (replicated value) from this rank's slab of chi, n = N chi^2 /
+        int chi^2 with the global normalisation (``normalise=False``: the
+        slab is the density itself), v_ext rebuilt on the slab from the
+        exact or PME structure factor on the k-pencil, the serial term
+        bodies under ``pencil_mode`` with their cached ladders.  The
+        hoisted term-aux slabs depend on the cell and are never passed
+        here; the grid-free ion-ion sum is the callers'."""
+        from .ops.grid import pencil_mode
+        from .parallel.mesh import grid_group
+        from .parallel import pfft
+        group, _, _ = grid_group(mesh)
+        local = self._pencil_local_shape(mesh)
+        has_ie = self._needs_vext()
+        N_elec = self._N_elec
+        v_slab = self._slab(self._v_ext, mesh)
+
+        def energy(chi, h, cart):
+            with pencil_mode(group):
+                v_ext = (self._potential_from_ions(h, cart, local) if has_ie
+                         else v_slab)
+                if normalise:
+                    N_tilde = wmean(chi * chi) * volume(h)
+                    den = (N_elec / N_tilde) * chi * chi
+                else:
+                    den = chi
+            return pfft.penergy_terms(self._terms, h, den, v_ext, group)
+
+        return energy
+
+    def _mesh_precond(self, mesh):
+        """The CG preconditioner of the Hessian solves on the mesh: the
+        full-grid kernel M(k) (built whole, as the serial one) on this
+        rank's k-pencil, applied by the pencil transforms."""
+        from .parallel.mesh import grid_group
+        from .parallel import pfft
+        group, P, idx = grid_group(mesh)
+        M = self._exact_precond_kernel(self._box_vecs, self._N_elec)
+        step = self._shape[1] // P
+        M_slab = M.narrow(1, idx * step, step)
+        shape = self._shape
+
+        def apply(q):
+            return pfft.pirfftn(M_slab * pfft.prfftn(q, group), shape, group)
+
+        return apply
+
     # ------------------------------------------------------------------
     # second derivatives through the ground state
     # ------------------------------------------------------------------
@@ -972,14 +1191,42 @@ class System:
     # the autograd transforms, preconditioned by the exact full-grid kernel
     # (the spectral-convolution kernel on the card).  Their energies take
     # the ladder terms' cached ladder and never the hoisted slabs, which
-    # depend on the cell.  ``set_mesh`` raises, so no mesh branch exists
-    # (ROADMAP A11).
+    # depend on the cell.  With a mesh attached, chi is this rank's slab,
+    # the energies run through ``_mesh_chi_energy_body`` (replicated
+    # values) plus the ion-ion sum, and the solves are SPMD
+    # (``implicit.ground_state_hessian(group=)``) with ``_mesh_precond``.
 
     def _gs_chi(self):
         return safe_sqrt(self._den)
 
     def _cg_precond(self):
+        if self._mesh is not None:
+            return self._mesh_precond(self._mesh)
         return self._exact_precond(self._box_vecs, self._N_elec)
+
+    def _hessian_args(self):
+        """(chi, group) of the Hessian solves: the whole chi serially, this
+        rank's slab and the "grid" group on a mesh."""
+        if self._mesh is None:
+            return self._gs_chi(), None
+        from .parallel.mesh import grid_group
+        return self._chi_sharded(self._mesh), grid_group(self._mesh)[0]
+
+    def _mesh_energy_fn(self, geometry):
+        """``energy(chi_local, theta)`` on the mesh: ``geometry(theta) ->
+        (h, cart)``, the density terms of ``_mesh_chi_energy_body`` plus
+        the ion-ion sum (replicated values)."""
+        body = self._mesh_chi_energy_body(self._mesh)
+        has_ii = self._has_ion_ion()
+
+        def energy(chi, theta):
+            h, cart = geometry(theta)
+            e = body(chi, h, cart)
+            if has_ii:
+                e = e + self._ion_ion_interaction(h, cart)
+            return e
+
+        return energy
 
     def pressure(self, units="Ha/b3", requires_grad=False):
         """P = -dE/dV at the stored density (Hellmann-Feynman: no solve)."""
@@ -1025,18 +1272,38 @@ class System:
 
         return energy
 
+    def _volume_energy_fn_mesh(self):
+        """``_volume_energy_fn`` on the attached mesh: (chi slab, vol) ->
+        the replicated energy of the cell scaled isotropically to vol."""
+        box0, vol0 = self._box_vecs, self.volume("b3")
+        frac = self._frac_ion_coords
+
+        def geometry(vol):
+            h = box0 * (vol / vol0) ** (1.0 / 3.0)
+            return h, frac @ h
+
+        return self._mesh_energy_fn(geometry)
+
     def _compute_volume_derivatives(self, bulk_modulus=True):
-        energy = self._volume_energy_fn()
-        chi0 = self._gs_chi()
+        chi0, group = self._hessian_args()
         vol0 = torch.tensor(self.volume("b3"), dtype=_F64,
                             device=self._device)
+        energy = (self._volume_energy_fn() if group is None
+                  else self._volume_energy_fn_mesh())
         if not bulk_modulus:
+            from .parallel.collectives import psum, rank_share
             with torch.enable_grad():
                 vol = vol0.clone().requires_grad_(True)
-                (dEdV,) = torch.autograd.grad(energy(chi0, vol), vol)
+                E = energy(chi0, vol)
+                if group is not None:
+                    E = rank_share(E, group)
+                (dEdV,) = torch.autograd.grad(E, vol)
+            if group is not None:
+                dEdV = psum(dEdV, group)
             return float(-dEdV)
         dEdV, H = implicit.ground_state_hessian(energy, chi0, vol0,
-                                                precond=self._cg_precond())
+                                                precond=self._cg_precond(),
+                                                group=group)
         return float(-dEdV[0]), float(vol0 * H[0, 0])
 
     def elastic_constants(self, units="Ha/b3"):
@@ -1061,8 +1328,11 @@ class System:
                 e = e + self._ion_ion_interaction(h, frac @ h)
             return e
 
+        chi0, group = self._hessian_args()
+        if group is not None:
+            energy = self._mesh_energy_fn(lambda h: (h, frac @ h))
         G0, Hbar = implicit.ground_state_hessian(
-            energy, self._gs_chi(), box0, precond=self._cg_precond())
+            energy, chi0, box0, precond=self._cg_precond(), group=group)
         G0 = G0.reshape(3, 3)
 
         def stress_of_h(h):
@@ -1114,11 +1384,14 @@ class System:
                 e = e + self._ion_ion_interaction(box0, cart)
             return e
 
+        chi0, group = self._hessian_args()
+        if group is not None:
+            energy = self._mesh_energy_fn(lambda cart: (box0, cart))
         prim = [int(p) for p in primitive_ion_indices]
         rows = [3 * p + i for p in prim for i in range(3)]
         _, Hbar = implicit.ground_state_hessian(
-            energy, self._gs_chi(), self._frac_ion_coords @ box0, rows=rows,
-            precond=self._cg_precond())
+            energy, chi0, self._frac_ion_coords @ box0, rows=rows,
+            precond=self._cg_precond(), group=group)
         # Hbar[(p, i), (j, b)] = d2Ebar/dR_pi dR_jb = -dF_pi/dR_jb
         return Hbar.reshape(len(prim), 3, n_ions, 3).permute(0, 2, 1, 3)
 
@@ -1158,7 +1431,7 @@ class System:
                                               functional=functional,
                                               params=params)
 
-        pc = self._cg_precond()
+        pc = self._exact_precond(self._box_vecs, self._N_elec)
         with torch.no_grad():
             E_ion = (float(self._ion_ion_energy()) if self._has_ion_ion()
                      else 0.0)
@@ -1205,7 +1478,7 @@ class System:
                 E = E + self._ion_ion_interaction(h, frac @ h)
             return E
 
-        pc = self._cg_precond()
+        pc = self._exact_precond(self._box_vecs, self._N_elec)
 
         def fn(params):
             with torch.enable_grad():
@@ -1296,8 +1569,13 @@ class System:
         System's working dtype), each volume's energy evaluated in
         float64 at its end point (see ``_eos_solve_fn``), and leaves the
         System untouched.
-        ``dtype`` without ``batched`` raises; ``mesh=`` (multi-device
-        scans) is not ported and raises."""
+        ``dtype`` without ``batched`` raises.  ``mesh``: with a "grid" axis
+        wider than one rank (or such a mesh attached by ``set_mesh``) each
+        volume's solve runs distributed (``optimize_density(mesh=,
+        jit_loop=True)``, ``analytic`` by default where the terms allow),
+        which ``batched=True`` rejects; otherwise the batched scan splits
+        its volumes over the mesh's "batch" ranks and all-gathers their
+        energies."""
         den_opt_inputs = {"ntol": 1e-10, "n_conv_cond_count": 3,
                           "n_method": "LBFGS", "n_step_size": 0.1,
                           "n_maxiter": 1000, "conv_target": "dE",
@@ -1308,8 +1586,24 @@ class System:
                 "eos_fit(dtype=...) applies to the batched scan only; the "
                 "serial scan runs at the System's own precision")
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device runs are not ported yet: ROADMAP A11")
+            _check_mesh(mesh)
+
+        def wide_grid(m):
+            return m is not None and m["grid"].size() > 1
+
+        grid_mesh = mesh if wide_grid(mesh) else (
+            self._mesh if wide_grid(self._mesh) else None)
+        if grid_mesh is not None and not batched:
+            from .models.potentials import supported_terms
+            den_opt_inputs.setdefault("jit_loop", True)
+            den_opt_inputs["mesh"] = grid_mesh
+            den_opt_inputs.setdefault("analytic",
+                                      supported_terms(self._terms))
+        elif grid_mesh is not None and batched:
+            raise ValueError(
+                'eos_fit(batched=True) uses a "batch" mesh axis; a "grid" '
+                "mesh (pencil-distributed per-volume solves) requires "
+                "batched=False")
 
         pred_v0 = self.volume("a3")
         norm_box_vecs = self.lattice_vectors("a") / pred_v0 ** (1.0 / 3.0)
@@ -1318,7 +1612,7 @@ class System:
                                           "Energy [eV per atom]")
         if batched:
             volumes, energies = self._eos_scan_batched(
-                vs, norm_box_vecs.cpu().numpy(),
+                vs, norm_box_vecs.cpu().numpy(), mesh=mesh,
                 ntol=den_opt_inputs["ntol"],
                 lr=den_opt_kwargs.get("n_step_size", 1.0),
                 max_iter=round(den_opt_inputs["n_maxiter"]),
@@ -1458,8 +1752,10 @@ class System:
 
     def _eos_scan_batched(self, vs_A3, norm_box_A, ntol, lr, max_iter,
                           n_method="LBFGS", conv_count=3, conv_target="dE",
-                          analytic=False, dtype=None):
-        """Batched volume scan: every volume a lane of one vmapped solve.
+                          analytic=False, dtype=None, mesh=None):
+        """Batched volume scan: every volume a lane of one vmapped solve;
+        with a ``mesh`` each "batch" rank solves its block of the volumes
+        (``np.array_split`` order) and the results are all-gathered.
         Non-converged volumes are dropped from the fit, with a printed
         warning naming them; fewer than 5 left raises.  Terms with
         ``prepare`` (HC, revHC, YukawaGGA, MGP) are rejected: their ladders
@@ -1486,7 +1782,11 @@ class System:
                     "term to have a fused analytic potential.")
         solve = self._eos_solve_fn(n_method, lr, ntol, conv_count, max_iter,
                                    analytic, dtype=dtype)
-        fs, convs, _ = solve(chi_b, box_b, vext_b)
+        if mesh is None:
+            fs, convs, _ = solve(chi_b, box_b, vext_b)
+        else:
+            fs, convs = self._eos_batch_ranks(solve, mesh, chi_b, box_b,
+                                              vext_b)
         vol_per_atom, ene_per_atom, dropped = [], [], []
         for v, f, E_ii, ok in zip(vs_A3, fs, E_ions, convs):
             if ok:
@@ -1504,6 +1804,27 @@ class System:
                 f"{len(list(vs_A3))} volume points converged - not enough "
                 f"for a 4-parameter EOS fit (raise n_maxiter or loosen ntol)")
         return vol_per_atom, ene_per_atom
+
+    @staticmethod
+    def _eos_batch_ranks(solve, mesh, chi_b, box_b, vext_b):
+        """The batched solve split over the mesh's "batch" ranks: each
+        solves its block of lanes; every rank gets every lane's (energy,
+        converged)."""
+        import torch.distributed as dist
+        if "batch" not in mesh.mesh_dim_names:
+            raise ValueError('mesh must have a "batch" axis')
+        sub = mesh["batch"]
+        blocks = np.array_split(np.arange(chi_b.shape[0]), sub.size())
+        mine = blocks[sub.get_local_rank()]
+        out = ([], [])
+        if len(mine):
+            idx = torch.as_tensor(mine, device=chi_b.device)
+            fs, convs, _ = solve(chi_b[idx], box_b[idx], vext_b[idx])
+            out = (list(fs), list(convs))
+        parts = [None] * sub.size()
+        dist.all_gather_object(parts, out, group=sub.get_group())
+        return ([f for p in parts for f in p[0]],
+                [c for p in parts for c in p[1]])
 
     # ------------------------------------------------------------------
     # geometry optimization
@@ -1523,10 +1844,10 @@ class System:
         optimization (value and gradient by autograd, f64, on the system's
         device), then a density re-optimization with ``den_opt_kwargs``
         (defaults: host-loop L-BFGS, ``ntol=1e-10``).  Returns whether it
-        converged.  Multi-device runs are not ported (ROADMAP A11)."""
-        if den_opt_kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "multi-device runs are not ported yet: ROADMAP A11")
+        converged.  With ``mesh=`` in ``den_opt_kwargs``, or a mesh
+        attached by ``set_mesh``, the steps' gradients, the density
+        re-optimizations (which then need ``jit_loop=True``) and the
+        force and stress checks run distributed."""
         if ftol is None and stol is None:
             raise ValueError("At least one of stol/ftol must not be None")
         vary_ions = ftol is not None
@@ -1576,10 +1897,8 @@ class System:
         rule and ``den_opt_kwargs`` are those of ``optimize_geometry``;
         ``param_string(p) -> str`` extends each verbose line.  Returns
         (converged, optimized params as a float64 tensor on the system's
-        device)."""
-        if den_opt_kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "multi-device runs are not ported yet: ROADMAP A11")
+        device).  A mesh (``mesh=`` or ``set_mesh``) distributes it as in
+        ``optimize_geometry``."""
         if ftol is None and stol is None:
             raise ValueError("At least one of stol/ftol must not be None")
 
@@ -1604,7 +1923,7 @@ class System:
                             param_string)
         return ok, self._t(p)
 
-    def _geometry_value_and_grad(self, geometry, held):
+    def _geometry_value_and_grad(self, geometry, held, mesh=None):
         """vg(x) -> (E, dE/dx) of the energy at the frozen chi
         ``held["chi"]`` for the geometry ``geometry(x) -> (frac, box)``
         (the loop sets chi before each step): x goes to the device as an
@@ -1614,18 +1933,32 @@ class System:
         The ion-ion cutoff, damping and image table are those of the cell
         at the first call, for the whole relaxation: the JAX package reads
         them from the concrete cell when it traces its jitted objective,
-        once per relaxation, and the ion-ion sum depends on them."""
+        once per relaxation, and the ion-ion sum depends on them.
+
+        With a ``mesh`` the density terms run on this rank's slab of chi
+        (``_mesh_chi_energy_body``), each rank differentiates its share of
+        the energy and the gradient is the psum of the parts."""
         frozen = []
+        group = None
+        if mesh is not None:
+            from .parallel.mesh import grid_group
+            from .parallel.collectives import (psum, rank_share,
+                                               broadcast_scalar)
+            group = grid_group(mesh)[0]
+            body = self._mesh_chi_energy_body(mesh)
 
         def energy(x):
             frac, box = geometry(x)
             chi = held["chi"]
             cart = frac @ box
-            v_ext = (self._potential_from_ions(box, cart)
-                     if self._needs_vext() else self._v_ext)
-            N_tilde = wmean(chi * chi) * volume(box)
-            den = (self._N_elec / N_tilde) * chi * chi
-            E = self._density_terms_energy(box, den, v_ext)
+            if group is not None:
+                E = body(self._slab(chi, mesh), box, cart)
+            else:
+                v_ext = (self._potential_from_ions(box, cart)
+                         if self._needs_vext() else self._v_ext)
+                N_tilde = wmean(chi * chi) * volume(box)
+                den = (self._N_elec / N_tilde) * chi * chi
+                E = self._density_terms_energy(box, den, v_ext)
             if self._has_ion_ion():
                 if not frozen:
                     Rc, Rd = self._Rc_Rd()
@@ -1639,7 +1972,13 @@ class System:
             with torch.enable_grad():
                 xt = self._t(x).requires_grad_(True)
                 E = energy(xt)
-                (g,) = torch.autograd.grad(E, xt)
+                if group is None:
+                    (g,) = torch.autograd.grad(E, xt)
+                else:
+                    (g,) = torch.autograd.grad(rank_share(E, group), xt)
+                    # the host optimizer branches on E: one value for all
+                    return (broadcast_scalar(E, group),
+                            psum(g, group).cpu().numpy())
             return float(E.detach()), g.cpu().numpy()
 
         return vg
@@ -1654,6 +1993,10 @@ class System:
                    "n_step_size": 0.1, "n_maxiter": 1000, "conv_target": "dE",
                    "n_verbose": False, "from_uniform": False}
         den_opt.update(den_opt_kwargs)
+        mesh = den_opt.get("mesh", self._mesh)
+        if mesh is not None:
+            _check_mesh(mesh)
+            den_opt["mesh"] = mesh
         if g_method in ("LBFGS", "LBFGSlinesearch"):
             opt = _HostLBFGS(lr=lr, history=8, max_iter=6,
                              line_search=g_method == "LBFGSlinesearch")
@@ -1675,7 +2018,7 @@ class System:
                 "Iter", "E [eV per atom]", "dE [eV per atom]",
                 "Max Force [eV/A]", "Max Stress [eV/A^3]"), flush=True)
         held = {}
-        vg = self._geometry_value_and_grad(geometry, held)
+        vg = self._geometry_value_and_grad(geometry, held, mesh)
         conv_counter = 0
         success_iter = None
         for it in range(1, round(maxiter) + 1):
@@ -1713,6 +2056,13 @@ class System:
                     else f"failed to converge in {maxiter} step(s)")
             print(f"Geometry optimization {word}\n", flush=True)
         return success_iter is not None, x
+
+
+def _check_mesh(mesh):
+    """A mesh must be a ``DeviceMesh`` with a "grid" axis."""
+    if "grid" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError('mesh must be a DeviceMesh with a "grid" axis '
+                         '(parallel.make_mesh)')
 
 
 def _wrap(frac):

@@ -7,7 +7,6 @@ or numpy arrays (``reuss_moduli`` inverts on the host in numpy).
 
 import numpy as np
 import torch
-from scipy.optimize import curve_fit
 
 __all__ = ["fit_eos", "voigt_moduli", "reuss_moduli", "shear_average",
            "poissons_ratio", "youngs_modulus"]
@@ -24,6 +23,7 @@ def fit_eos(vol, ene, eos="bm", plot=False):
     """Fit (V, E) data to the Murnaghan ('m') or Birch-Murnaghan ('bm')
     equation of state.  Returns (params, errors), params ordered
     (K0, K0', E0, V0) in the units of the data."""
+    from scipy.optimize import curve_fit
     vol, ene = _host(vol), _host(ene)
     # harmonic-solid initial guess: E = E0 + 0.5 K0 (V - V0)^2 / V0
     apar, bpar, cpar = np.polyfit(vol, ene, 2)

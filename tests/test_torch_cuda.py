@@ -3,9 +3,10 @@ spectral-convolution and Stockham kernels against their plain torch.fft
 versions on the card, their wrappers' checks and launch counts, the
 density paths, the fused potentials of every ported functional and the
 geometry relaxation on the card against the same calls on the CPU, the
-fused sweeps of the functionals with ladders and kernel tables, and the
+fused sweeps of the functionals with ladders and kernel tables, the
 second derivatives, PME and the radial preconditioner kernel against the
-CPU.
+CPU, and the mesh paths on one NCCL rank (world size 1: NCCL takes one
+rank per card) against the serial paths on the card.
 
 They skip without a CUDA device.  This file imports no JAX, so on a GPU host
 without JAX run it without the suite's JAX conftest:
@@ -588,3 +589,157 @@ def test_batched_eos_scan_on_the_card(cuda):
     params, _ = s.eos_fit(f=0.05, N=6, batched=True, n_method="TPGD",
                           analytic=True, ntol=1e-9)
     assert np.all(np.isfinite(params))
+
+
+# ------------------------- the mesh paths on one NCCL rank ----------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A ("batch", "grid") mesh of shape (1, 1) over an NCCL process group
+    of world size 1 on cuda:0 (file:// rendezvous), destroyed after the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from professad_tpu_torch.parallel import init_process_group, make_mesh
+    rdv = tmp_path_factory.mktemp("nccl") / "rdv"
+    init_process_group(0, 1, f"file://{rdv}", device="cuda:0")
+    yield make_mesh(1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6),
+                                       (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+def test_pencil_mode_never_launches_the_kernel(nccl_mesh, dtype, tol):
+    """Under pencil_mode spectral_convolution composes the pencil
+    transforms (torch.fft and NCCL) and does not launch spectral_conv; the
+    serial call still launches it, and both agree."""
+    from professad_tpu_torch.ops import grid
+    cuda = torch.device("cuda", 0)
+    x, K = _case((32, 24, 20), dtype, cuda)
+    before = sc.launches
+    with grid.pencil_mode(nccl_mesh):
+        y = grid.spectral_convolution(K, x, x.shape)
+    torch.cuda.synchronize()
+    assert sc.launches == before
+    y_serial = grid.spectral_convolution(K, x, x.shape)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    assert _rel(y, y_serial) < tol
+
+
+@pytest.mark.cuda
+def test_pencil_transforms_and_collectives_nccl(nccl_mesh):
+    from professad_tpu_torch.parallel import (pfft, grid_group, psum,
+                                              rank_share, all_to_all)
+    group = grid_group(nccl_mesh)[0]
+    cuda = torch.device("cuda", 0)
+    x, _ = _case((16, 12, 10), torch.float64, cuda)
+    X = pfft.prfftn(x, group)
+    assert _rel(X, torch.fft.rfftn(x)) < 1e-12
+    assert _rel(pfft.pirfftn(X, x.shape, group), x) < 1e-12
+    # a uniform f32 field stays uniform (tests/test_parallel_generic.py's
+    # DC-split check; the card's f32 sum of it is not exact)
+    u = torch.full((16, 12, 10), 0.0296, dtype=torch.float32, device=cuda)
+    rt = pfft.pirfftn_dc(pfft.prfftn_dc(u, group), u.shape, group)
+    assert bool((rt == rt.reshape(-1)[0]).all())
+    assert abs(float(rt.reshape(-1)[0]) - 0.0296) < 1e-6 * 0.0296
+    z = torch.randn(4, 6, dtype=torch.complex128, device=cuda)
+    assert bool((all_to_all(z, 1, 0, group) == z).all())
+    a = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(rank_share(psum((a * a).sum(), group),
+                                          group), a)
+    assert _rel(g, 2 * x) < 1e-15
+
+
+def _li2_card(shape, dtype=torch.float64):
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeter, PerdewBurkeErnzerhof)
+    L = 6.96
+    return System(L * np.eye(3), shape,
+                  [["Li", LI_POT, L * np.array([[0.02, 0.05, 0.0],
+                                                [0.5, 0.5, 0.47]])]],
+                  [IonIon, IonElectron, Hartree, WangTeter,
+                   PerdewBurkeErnzerhof], units="b", device="cuda:0",
+                  dtype=dtype)
+
+
+MESH_KW = dict(ntol=1e-9, jit_loop=True, precondition=True, n_step_size=1.0,
+               n_method="TPGD", skip_iters=2, analytic=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,analytic", [("TPGD", True), ("LBFGS", True),
+                                             ("TPGD", False)],
+                         ids=["tpgd", "lbfgs", "autodiff"])
+def test_mesh_optimize_density_card_vs_serial(nccl_mesh, method, analytic):
+    """optimize_density(mesh=) at 32^3 f64 on the card against the serial
+    path (L-BFGS checking every iteration on both, as the mesh path's
+    default): energy, density, forces and stress."""
+    kw = dict(MESH_KW, n_method=method, analytic=analytic, block=1)
+    ser = _li2_card((32, 32, 32))
+    ser.optimize_density(**kw)
+    msh = _li2_card((32, 32, 32))
+    before = sc.launches
+    msh.optimize_density(mesh=nccl_mesh, **kw)
+    torch.cuda.synchronize()
+    assert sc.launches == before
+    assert msh._mesh is nccl_mesh
+    assert abs(msh.energy() - ser.energy()) <= 1e-12 * abs(ser.energy())
+    assert _rel(msh.density(), ser.density()) < 1e-10
+    assert _rel(msh.forces(), ser.forces()) < 1e-10
+    assert _rel(msh.stress(), ser.stress()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_mesh_second_derivatives_card(nccl_mesh):
+    s = _li2_card((16, 16, 16))
+    s.optimize_density(**dict(MESH_KW, ntol=1e-11))
+    ref = (s.pressure(), s.bulk_modulus(), s.force_constants([0]))
+    s.set_mesh(nccl_mesh)
+    got = (s.pressure(), s.bulk_modulus(), s.force_constants([0]))
+    assert abs(got[0] - ref[0]) <= 1e-10 * abs(ref[0])
+    assert abs(got[1] - ref[1]) <= 1e-10 * abs(ref[1])
+    assert _rel(got[2], ref[2]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_mesh_f32_main_path_card(nccl_mesh):
+    """The f32 fast tier on the mesh lands where the serial f32 path does
+    (within the f32 bound of tests/test_f32_accuracy.py, 2e-5 eV/atom) in
+    as many iterations, give or take 2."""
+    ser = _li2_card((32, 32, 32), torch.float32)
+    n_ser, _ = ser.optimize_density(**dict(MESH_KW, ntol=1e-7))
+    msh = _li2_card((32, 32, 32), torch.float32)
+    n_msh, conv = msh.optimize_density(mesh=nccl_mesh,
+                                       **dict(MESH_KW, ntol=1e-7))
+    assert conv and abs(n_msh - n_ser) <= 2
+    assert abs(msh.energy("eV") - ser.energy("eV")) / 2 < 2e-5
+
+
+@pytest.mark.cuda
+def test_mesh_eos_batch_card(nccl_mesh):
+    """eos_fit on a batch mesh (every volume on this rank, the results
+    all-gathered) equals the serial batched scan: cubic fcc Al, WT + PBE,
+    16^3."""
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeter, PerdewBurkeErnzerhof)
+    from professad_tpu_torch.parallel import make_mesh
+
+    def fcc():
+        frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                         [0.0, 0.5, 0.5]])
+        return System(4.05 * np.eye(3), (16, 16, 16), [["Al", POT, frac]],
+                      [IonIon, IonElectron, Hartree, WangTeter,
+                       PerdewBurkeErnzerhof], units="a",
+                      coord_type="fractional", device="cuda:0")
+
+    kw = dict(f=0.05, N=5, ntol=1e-9, n_method="TPGD", n_step_size=1.0,
+              analytic=True, batched=True)
+    p_ser, _ = fcc().eos_fit(**kw)
+    p_msh, _ = fcc().eos_fit(mesh=make_mesh(1, batch=1), **kw)
+    assert np.allclose(p_msh, p_ser, rtol=1e-8)

@@ -72,7 +72,7 @@ def test_eos_rejections():
         s.eos_fit(N=6, batched=True, conv_target="euler")
     with pytest.raises(ValueError, match="n_method"):
         s.eos_fit(N=6, batched=True, n_method="CG")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="grid"):
         s.eos_fit(N=6, mesh=object())
     s2 = torch_system((8, 8, 8), terms=[IonIon, IonElectron, Hartree, wt,
                                         PerdewBurkeErnzerhof])

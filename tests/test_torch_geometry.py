@@ -206,5 +206,5 @@ def test_optimize_geometry_options():
         ts.optimize_geometry(ftol=None, stol=None)
     with pytest.raises(ValueError, match="g_method"):
         ts.optimize_geometry(g_method="BFGS", g_maxiter=1)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="grid"):
         ts.optimize_geometry(mesh=object())

@@ -31,7 +31,7 @@ def _public(mod):
     return set(names)
 
 
-@pytest.mark.parametrize("module", ("", ".utils") + tuple(
+@pytest.mark.parametrize("module", ("", ".utils", ".parallel") + tuple(
     "." + m for m in COMPAT))
 def test_every_jax_name_resolves(module):
     """Every public name of professad_tpu<module> resolves in
@@ -160,6 +160,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, professad_tpu_torch\n"
             + "".join(f"import professad_tpu_torch.{m}\n" for m in COMPAT)
             + "import professad_tpu_torch.utils\n"
+            "import professad_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'professad_tpu' or "
             "m.startswith('professad_tpu.')]\n"

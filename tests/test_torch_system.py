@@ -149,17 +149,18 @@ def _potentials(box_vecs, den):
     dict(n_method="TPGD", conv_target="euler", mesh=object()),
 ], ids=["lbfgs", "autograd", "unpreconditioned", "euler"])
 def test_unported_options_raise(pair, kwargs):
-    """What is still not ported (multi-device runs) raises with its
-    ROADMAP item, on every solver setting."""
+    """A ``mesh=`` the mesh path cannot take (not a DeviceMesh with a
+    "grid" axis, or without ``jit_loop=True``) raises ValueError on every
+    solver setting."""
     _, ts = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         ts.optimize_density(**kwargs)
 
 
 def test_mesh_raises(pair):
     _, ts = pair
     ts.set_mesh(None)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="grid"):
         ts.set_mesh(object())
     with pytest.raises(ValueError, match="autodiff gradients only"):
         ts.optimize_density(jit_loop=True, potentials=_potentials)
