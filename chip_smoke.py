@@ -123,6 +123,21 @@ Phases (any failure exits non-zero):
      ones at the same density, rel 1e-12; (c) 32^3 f64: bulk_modulus on the mesh against the
      serial getter, rel 1e-10; (d) eos_fit(mesh=batch mesh, batched=True)
      against the serial batched scan (64^3, f32), 1e-4 in K0 and V0.
+ 17. the example workflows, spectral_conv's count reset just before the
+     phase and read just after: examples/torch_density_optimization.py,
+     torch_geometry_optimization.py and torch_parameterized_functionals.py,
+     each main() on the card (its default device) at its own sizes, each
+     with its seconds, spectral_conv launches and peak memory beside the
+     card's name and power limit.  Density: the four paths' energies
+     within 1e-6 eV of each other, and the analytic TPGD path's launches at
+     least 3 x its iterations.  Geometry: both relaxations converge, the
+     bcc-Li one within the bounds of tests/test_geometry.py (max |F| <
+     0.02 eV/A, max |sigma| < 0.003 eV/A^3, the ion-ion offset within
+     5e-3 of (0.5, 0.5, 0.5)).  Training: the Pauli-Gaussian and neural
+     losses end below their first epoch's, the checkpoint round trip is
+     bit-exact, and the ground-state training's last loss is not above
+     its first (per epoch it rises at the first applied Rprop step, in
+     both packages).
 
 Output: one line per measurement, then the kernels' JSON line, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
@@ -1729,6 +1744,82 @@ def phase_mesh(device, sync, serial, sizes=(128, 64, 32, 64)):
     return launches
 
 
+EXAMPLES = ("torch_density_optimization", "torch_geometry_optimization",
+            "torch_parameterized_functionals")
+
+
+def _example(name, device, card):
+    """Run examples/<name>.py's main() on the card (its default device);
+    returns its numbers and logs its seconds, launches and peak memory."""
+    import importlib
+    import torch
+    from professad_tpu_torch.ops import spectral_conv as sc
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    ex = importlib.import_module(name)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = sc.launches
+    t0 = time.perf_counter()
+    out = ex.main()
+    torch.cuda.synchronize(device)
+    t = time.perf_counter() - t0
+    launches = sc.launches - before
+    mib = torch.cuda.max_memory_allocated(device) / 2**20
+    log(f"[examples] {name}: {t:.2f} s, spectral_conv launches {launches}, "
+        f"max memory allocated {mib:.1f} MiB ({card})")
+    return out
+
+
+def phase_examples(device, card):
+    """The example workflows (module docstring, phase 17).  Returns
+    spectral_conv's launches in the phase."""
+    from professad_tpu_torch.ops import spectral_conv as sc
+    sc.launches = 0
+    den, geo, train = (_example(name, device, card) for name in EXAMPLES)
+    launches = sc.launches
+    checks = {}
+    paths = [den[k] for k in ("host", "jit_loop", "tpgd", "analytic")]
+    energies = [p["E"] for p in paths]
+    spread = max(energies) - min(energies)
+    a = den["analytic"]
+    log(f"[examples] density {den['shape']}: energies "
+        f"{', '.join(f'{e:.10f}' for e in energies)} eV (spread "
+        f"{spread:.3e}, bound 1e-6); analytic TPGD {a['n_it']} iterations, "
+        f"{a['launches']} launches (bound >= 3 x iterations)")
+    checks["density: every path converged"] = all(p["conv"] for p in paths)
+    checks["density: paths agree"] = spread < 1e-6
+    checks["density: analytic launches"] = a["launches"] >= 3 * a["n_it"]
+    cell, hcp = geo["cell"], geo["hcp"]
+    offset = (cell["frac"][1] - cell["frac"][0]) % 1.0
+    log(f"[examples] geometry: bcc Li ions + cell converged "
+        f"{cell['converged']}, max |F| {cell['max_force']:.3e} eV/A, max "
+        f"|sigma| {cell['max_stress']:.3e} eV/A^3, ion offset {offset}; "
+        f"hcp converged {hcp['converged']}, a {hcp['a']:.4f} bohr, c/a "
+        f"{hcp['c_over_a']:.4f}")
+    checks["geometry: bcc Li converged"] = bool(cell["converged"])
+    checks["geometry: hcp converged"] = bool(hcp["converged"])
+    checks["geometry: bcc Li in the bounds of tests/test_geometry.py"] = (
+        cell["max_force"] < 0.02 and cell["max_stress"] < 0.003
+        and bool(np.allclose(offset, 0.5, atol=5e-3)))
+    gs = train["gs_losses"]
+    log(f"[examples] training: Pauli-Gaussian loss {train['pg_losses'][0]:.4e}"
+        f" -> {train['pg_losses'][-1]:.4e}, neural {train['nn_losses'][0]:.4e}"
+        f" -> {train['nn_losses'][-1]:.4e}, checkpoint bit-exact "
+        f"{train['checkpoint_ok']}, ground-state losses "
+        f"{', '.join(f'{v:.4e}' for v in gs)}")
+    for key in ("pg_losses", "nn_losses"):
+        checks[f"training: {key} fall"] = train[key][-1] < train[key][0]
+    checks["training: checkpoint round trip"] = bool(train["checkpoint_ok"])
+    checks["training: ground-state loss not above its start"] = gs[-1] <= gs[0]
+    log(f"[examples] spectral_conv launches {launches}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[examples] failed: {failed}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1767,6 +1858,7 @@ def main():
     radial_launches = phase_radial(device, sync, res["E"])
     eos_launches, batched = phase_eos(device, sync)
     mesh_launches = phase_mesh(device, sync, res)
+    examples_launches = phase_examples(device, card)
 
     abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
@@ -1784,6 +1876,7 @@ def main():
         "second_launches": second_launches, "pme_launches": pme_launches,
         "radial_launches": radial_launches, "eos_launches": eos_launches,
         "mesh_launches": mesh_launches,
+        "examples_launches": examples_launches,
         "batched_ms": batched["ms"], "batched_graph_ms": batched["graph_ms"],
         "batched_library_ms": batched["library_ms"],
         "batched_library_graph_ms": batched["library_graph_ms"],

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import grid as _grid
-from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn
+from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn, expi
 from ..ops.interp import interpolate
 from ..utils.constants import RECPOT_BOHR, RECPOT_POT_CONV
 
@@ -117,10 +117,6 @@ def lattice_sum(box_vecs, shape, cart_ion_coords, f_tilde, order=None):
             / volume(box_vecs))
 
 
-def _expi(x):
-    return torch.complex(torch.cos(x), torch.sin(x))
-
-
 def cardinal_b_spline_values(x, order):
     """[M_n(x + i) for i = 0..n-1] for x in [0, 1), stacked on a new
     leading axis, by the recurrence M_n[i] = ((x+i) M_{n-1}[i] +
@@ -144,8 +140,8 @@ def exponential_spline_b(m, N, order):
     """Exponential-spline deconvolution factors b(m) (complex)."""
     M = cardinal_b_spline_values(torch.zeros_like(m), order)  # (order, |m|)
     i = torch.arange(order, dtype=m.dtype, device=m.device)[:, None]
-    b = torch.sum(M * _expi(2.0 * np.pi * m * (i - 1.0) / N), dim=0)
-    return _expi(2.0 * np.pi * m * (order - 1.0) / N) / b
+    b = torch.sum(M * expi(2.0 * np.pi * m * (i - 1.0) / N), dim=0)
+    return expi(2.0 * np.pi * m * (order - 1.0) / N) / b
 
 
 def _spread_scatter(shape, l0, l1, l2, M0, M1, M2):
@@ -241,7 +237,8 @@ def neighbor_shifts(box_vecs, Rc):
     return shifts[keep]
 
 
-def ion_interaction_sum(box_vecs, coords, charges, Rc, Rd, shifts=None):
+def ion_interaction_sum(box_vecs, coords, charges, Rc, Rd, shifts=None,
+                        chunk=None):
     """Real-space damped pairwise electrostatic sum in a neutralising
     background (Witt et al., PRMaterials 2, 013806):
 
@@ -249,15 +246,17 @@ def ion_interaction_sum(box_vecs, coords, charges, Rc, Rd, shifts=None):
         + per-ion adaptive-radius correction terms.
 
     ``shifts`` (lattice-unit image table) defaults to
-    :func:`neighbor_shifts` of the concrete cell; the images are summed in
-    chunks of at most ``_MAX_PAIRS`` pair terms (bounded memory).
-    Differentiable with respect to ``coords`` and ``box_vecs``."""
+    :func:`neighbor_shifts` of the concrete cell.  The images are summed
+    ``chunk`` at a time (bounded memory); ``None`` picks the most that keep
+    a chunk within ``_MAX_PAIRS`` pair terms.  Differentiable with respect
+    to ``coords`` and ``box_vecs``."""
     if shifts is None:
         shifts = neighbor_shifts(box_vecs.detach().cpu().numpy(), Rc)
     n_ions = coords.shape[0]
     dtype, device = coords.dtype, coords.device
     shifts_t = torch.as_tensor(np.asarray(shifts), dtype=dtype, device=device)
-    chunk = max(1, _MAX_PAIRS // (n_ions * n_ions))
+    if chunk is None:
+        chunk = max(1, _MAX_PAIRS // (n_ions * n_ions))
     zz = charges[:, None] * charges[None, :]
 
     E_local = torch.zeros((), dtype=dtype, device=device)

@@ -74,6 +74,13 @@ def LuoKarasievTrickey(box_vecs, den):
     return Weizsaecker(box_vecs, den) + pauli_T
 
 
+def _abs(x):
+    """|x| whose derivative at 0 is +1, as ``jnp.abs``'s is (``torch.abs``
+    has 0 there, which would hold a parameter that starts at 0 fixed in
+    training)."""
+    return torch.where(x < 0, -x, x)
+
+
 class PauliGaussian(KineticFunctional):
     """Pauli-Gaussian family: F = e^{-mu s^2} + beta q^2 - lambda q s^2
     + sigma s^4 on the TF energy density, plus vW.  Defaults to
@@ -106,10 +113,10 @@ class PauliGaussian(KineticFunctional):
         kx, ky, kz, k2 = wavevecs(box_vecs, den.shape)
         s2 = reduced_gradient_squared(kx, ky, kz, den)
         q = reduced_laplacian(k2, den)
-        F_enh = (torch.exp(-torch.abs(params["mu"]) * s2)
-                 + torch.abs(params["beta"]) * q * q
-                 - torch.abs(params["lamb"]) * q * s2
-                 + torch.abs(params["sigma"]) * s2 * s2)
+        F_enh = (torch.exp(-_abs(params["mu"]) * s2)
+                 + _abs(params["beta"]) * q * q
+                 - _abs(params["lamb"]) * q * s2
+                 + _abs(params["sigma"]) * s2 * s2)
         pauli_T = qmean(TF_ked * F_enh) * volume(box_vecs)
         return Weizsaecker(box_vecs, den) + pauli_T
 

@@ -42,7 +42,7 @@ from ..ops.grid import (wavevecs, volume, qmean, wmean, safe_sqrt, rfftn,
 from ..ops.interp import _bracket
 from ..ops.fieldconv import ladder_convolution, ladder_adjoint
 from ..utils.naming import term_name
-from .kinetic_local import TF_COEFF, _mean_density
+from .kinetic_local import TF_COEFF, _abs, _mean_density
 from .kinetic_nonlocal import (G_inv_lind, G_inv_gap, WGC98_ALPHA, WGC98_BETA,
                                KGAP, XuWangMa, _kgap_exponents,
                                _stabilizer_fprime0, _wgc99_kernel,
@@ -293,10 +293,10 @@ def _vp_pauli_gaussian(ctx, params):
     den = ctx.den
     _, _, _, k2 = ctx.kvecs
     gdg = ctx.gdg
-    mu = torch.abs(params["mu"])
-    beta = torch.abs(params["beta"])
-    lamb = torch.abs(params["lamb"])
-    sigma = torch.abs(params["sigma"])
+    mu = _abs(params["mu"])
+    beta = _abs(params["beta"])
+    lamb = _abs(params["lamb"])
+    sigma = _abs(params["sigma"])
     c2 = 0.25 * (3.0 * np.pi**2) ** (-2.0 / 3.0)
     s2 = c2 * gdg * den ** (-8.0 / 3.0)
     lap_den = irfftn(-k2 * ctx.den_ft, ctx.shape)

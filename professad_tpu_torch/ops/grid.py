@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "inv3x3", "volume", "wavevecs", "imul", "qmean", "wmean", "safe_sqrt",
+    "inv3x3", "volume", "rfft_shape", "wavevecs", "wavenumbers", "imul",
+    "expi", "qmean", "wmean", "safe_sqrt",
     "rfftn", "irfftn", "spectral_convolution", "spectral_resample", "grad_i",
     "laplacian", "grad_dot_grad", "reduced_gradient",
     "reduced_gradient_squared", "reduced_laplacian", "pencil_mode",
@@ -59,6 +60,11 @@ def inv3x3(m):
                        torch.stack([D, E, F]),
                        torch.stack([G, H, I])])
     return adj / det
+
+
+def rfft_shape(shape):
+    """Shape of the half-spectrum rfftn output for a real grid of ``shape``."""
+    return (*shape[:-1], shape[-1] // 2 + 1)
 
 
 def volume(box_vecs):
@@ -100,9 +106,20 @@ def wavevecs(box_vecs, shape):
     return kx, ky, kz, k2
 
 
+def wavenumbers(box_vecs, shape):
+    """|k| on the half-spectrum grid, zero-safe at the origin."""
+    return safe_sqrt(wavevecs(box_vecs, shape)[3])
+
+
 def imul(k, ft):
     """(i k) * ft for real k and complex ft, in real arithmetic."""
     return torch.complex(-k * ft.imag, k * ft.real)
+
+
+def expi(theta):
+    """e^{i theta} for real theta: complex64 for float32, complex128 for
+    float64."""
+    return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
 def _colsum_mean64(x):

@@ -11,7 +11,7 @@ PyTorch port of ``professad_tpu/ops/solvers.py``:
   on 0-d tensors), so a block of iterations never synchronises.
 * ``TPGDState`` / ``tpgd_iteration`` / ``tpgd_minimize``: BB2 steps
   ``x <- x - H M g`` in the M-inner product, stagnation-triggered damping
-  and best-iterate tracking.
+  (``stag_k``) and, unless ``track_best=False``, best-iterate tracking.
 * ``tpgd_init`` / ``tpgd_step``: the unpreconditioned BB1 step of the host
   loop.
 * ``cg``: preconditioned conjugate gradients with the stopping rule of
@@ -52,9 +52,6 @@ __all__ = ["LBFGSState", "lbfgs_init", "lbfgs_iterations", "lbfgs_minimize",
            "TPGDState", "tpgd_init", "tpgd_step", "tpgd_iteration",
            "tpgd_minimize", "cg", "tpgd_minimize_lanes",
            "lbfgs_minimize_lanes"]
-
-_STAG_K = 6  # iterations without a new best energy before the step halves
-
 
 class LBFGSState(NamedTuple):
     x: torch.Tensor         # parameter array (caller's shape, preserved)
@@ -257,19 +254,20 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0,
 
 def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
                   max_iter=1000, f_scale=1.0, skip_iters=2, apply_H0=None,
-                  stop_fn=None, group=None):
+                  stop_fn=None, stag_k=6, track_best=True, group=None):
     """Preconditioned TPGD to convergence.  Returns (state, n_iters,
     converged).  ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the
     default convergence measure ``|dE| * f_scale`` (one more scalar read
     per iteration); ``group``: SPMD mode (module docstring).
 
-    Stagnation damping: after ``_STAG_K`` consecutive iterations without a
+    Stagnation damping: after ``stag_k`` consecutive iterations without a
     new best energy by more than the dtype's resolution (8 eps |f_best|),
     the step scale halves, forcing the iterate onto its floating-point fixed
-    point so the dE rule fires.  The returned state is the lowest-energy
-    iterate seen (its ``g`` and BB memory belong to the last one): the BB
-    trajectory is non-monotone, and damping may freeze it just above a
-    visited minimum."""
+    point so the dE rule fires.  ``track_best=True`` returns the
+    lowest-energy iterate seen (its ``g`` and BB memory belong to the last
+    one): the BB trajectory is non-monotone, and damping may freeze it just
+    above a visited minimum.  ``track_best=False`` keeps no best iterate
+    (one grid-sized buffer less) and returns the last one."""
     f0, g0 = value_and_grad(x0)
     g0 = g0.reshape(x0.shape)
     eps = torch.finfo(x0.dtype).eps
@@ -277,7 +275,8 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     st = TPGDState(x=x0, f=f0, g=g0, g_prev=g0, Mg_prev=zeros,
                    s_prev=zeros, n_iter=0)
     f_prev = _host(f0, group)
-    f_best, f_best_t, x_best = f_prev, f0, x0
+    f_best = f_prev
+    best = (f0, x0) if track_best else None
     cnt = it = stag = 0
     damp = 1.0
     while cnt < conv_count and it < max_iter:
@@ -288,9 +287,11 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
         tol_stag = 8.0 * eps * max(abs(f_best), 1.0)
         improved = f_best - f_new > tol_stag
         if f_new < f_best:
-            f_best, f_best_t, x_best = f_new, st.f, st.x
+            f_best = f_new
+            if track_best:
+                best = (st.f, st.x)
         stag = 0 if improved else stag + 1
-        if stag >= _STAG_K:
+        if stag >= stag_k:
             damp *= 0.5
             stag = 0
         stop_var = (abs(f_new - f_prev) * f_scale if stop_fn is None
@@ -299,8 +300,8 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
         cnt = cnt + 1 if hit else 0
         it += 1
         f_prev = f_new
-    if f_best < f_prev:
-        st = st._replace(x=x_best, f=f_best_t)
+    if track_best and f_best < f_prev:
+        st = st._replace(f=best[0], x=best[1])
     return st, it, cnt >= conv_count
 
 
@@ -368,7 +369,8 @@ def _lane_fns(value_and_grad, apply_H0, lane):
 
 def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
                         conv_count=3, max_iter=1000, f_scale=1.0,
-                        skip_iters=2, apply_H0=None):
+                        skip_iters=2, apply_H0=None, stag_k=6,
+                        track_best=True):
     """``tpgd_minimize`` on B lanes at once.
 
     ``x0`` is (B, ...); ``lanes`` is a tuple of tensors with a leading
@@ -378,9 +380,10 @@ def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
     not read tensors to the host.  A lane stops when its |dE| rule holds;
     the loop ends when every lane has stopped or after ``max_iter``
     iterations.  Each lane's result is what ``tpgd_minimize`` gives for it
-    (to rounding: vmapped reductions may sum in another order).  Returns
-    (state, iterations per lane, converged per lane): the state's ``x``
-    and ``f`` (a (B,) tensor) are each lane's best iterate."""
+    with the same ``stag_k`` and ``track_best`` (to rounding: vmapped
+    reductions may sum in another order).  Returns (state, iterations per
+    lane, converged per lane): the state's ``x`` and ``f`` (a (B,) tensor)
+    are each lane's best iterate, or its last with ``track_best=False``."""
     B = x0.shape[0]
 
     def init(x, *lane):
@@ -393,7 +396,7 @@ def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
                    s_prev=zeros, n_iter=0)
     f_prev = f0.tolist()
     f_best = list(f_prev)
-    x_best = x0
+    x_best = x0 if track_best else None
     cnt, it, stag = [0] * B, [0] * B, [0] * B
     damp = [1.0] * B
     while not all(c >= conv_count for c in cnt) and max(it) < max_iter:
@@ -420,7 +423,7 @@ def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
             if f_new[b] < f_best[b]:
                 f_best[b], better[b] = f_new[b], True
             stag[b] = 0 if improved else stag[b] + 1
-            if stag[b] >= _STAG_K:
+            if stag[b] >= stag_k:
                 damp[b] *= 0.5
                 stag[b] = 0
             hit = (it[b] + 1 > skip_iters
@@ -428,12 +431,14 @@ def tpgd_minimize_lanes(value_and_grad, x0, lanes=(), lr=0.1, ntol=1e-7,
             cnt[b] = cnt[b] + 1 if hit else 0
             it[b] += 1
             f_prev[b] = f_new[b]
-        x_best = _lane_select([not v for v in better], x_best, st.x)
-    take = [fb < fl for fb, fl in zip(f_best, f_prev)]
-    f_out = torch.tensor([fb if t else fl for fb, fl, t in
-                          zip(f_best, f_prev, take)], dtype=st.f.dtype,
-                         device=st.f.device)
-    st = st._replace(x=_lane_select(take, st.x, x_best), f=f_out)
+        if track_best:   # a lane's new best iterate replaces its x_best
+            x_best = _lane_select(better, x_best, st.x)
+    if track_best:
+        take = [fb < fl for fb, fl in zip(f_best, f_prev)]
+        f_out = torch.tensor([fb if t else fl for fb, fl, t in
+                              zip(f_best, f_prev, take)], dtype=st.f.dtype,
+                             device=st.f.device)
+        st = st._replace(x=_lane_select(take, st.x, x_best), f=f_out)
     return st, it, [c >= conv_count for c in cnt]
 
 

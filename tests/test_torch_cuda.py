@@ -4,9 +4,10 @@ versions on the card, their wrappers' checks and launch counts, the
 density paths, the fused potentials of every ported functional and the
 geometry relaxation on the card against the same calls on the CPU, the
 fused sweeps of the functionals with ladders and kernel tables, the
-second derivatives, PME and the radial preconditioner kernel against the
-CPU, and the mesh paths on one NCCL rank (world size 1: NCCL takes one
-rank per card) against the serial paths on the card.
+second derivatives, PME, the radial preconditioner kernel, the TPGD
+keywords and the grid helpers against the CPU, and the mesh paths on one
+NCCL rank (world size 1: NCCL takes one rank per card) against the serial
+paths on the card.
 
 They skip without a CUDA device.  This file imports no JAX, so on a GPU host
 without JAX run it without the suite's JAX conftest:
@@ -743,3 +744,57 @@ def test_mesh_eos_batch_card(nccl_mesh):
     p_ser, _ = fcc().eos_fit(**kw)
     p_msh, _ = fcc().eos_fit(mesh=make_mesh(1, batch=1), **kw)
     assert np.allclose(p_msh, p_ser, rtol=1e-8)
+
+
+def _tpgd_run(device, stag_k, track_best, n=32):
+    """tpgd_minimize on the main path's cell with one ion displaced
+    (4-atom cubic fcc Al, WT + PBE, f64, the fused gradient and the exact
+    preconditioner) from the uniform start."""
+    from professad_tpu_torch.ops import solvers
+    from professad_tpu_torch.ops.grid import safe_sqrt
+    s = _second_system(device, (n, n, n))
+    N = float(s._N_elec)
+    box, v_ext = s._box_vecs, s._v_ext
+    st, it, conv = solvers.tpgd_minimize(
+        lambda x: s._chi_value_and_grad_analytic(x, box, v_ext, N),
+        safe_sqrt(s._uniform_density()), lr=1.0, ntol=1e-9, conv_count=3,
+        max_iter=200, f_scale=27.211386245988, skip_iters=2,
+        apply_H0=s._apply_spectral(s._exact_precond_kernel(box, N)),
+        stag_k=stag_k, track_best=track_best)
+    return float(st.f), it, conv, st.x.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stag_k,track_best", [(6, False), (3, True)])
+def test_tpgd_keywords_card_vs_cpu(cuda, stag_k, track_best):
+    """``stag_k`` and ``track_best`` at 32^3 f64: the card (the kernel
+    applies the preconditioner, WT and vW) against the same call on the
+    CPU (their plain version), the energy within 1e-10."""
+    before = sc.launches
+    E, it, conv, x = _tpgd_run(cuda, stag_k, track_best)
+    assert sc.launches - before >= 3 * it
+    E_cpu, it_cpu, conv_cpu, x_cpu = _tpgd_run("cpu", stag_k, track_best)
+    assert conv and conv_cpu and abs(it - it_cpu) <= 1
+    assert abs(E - E_cpu) <= 1e-10 * abs(E_cpu)
+    assert _rel(x, x_cpu) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ctype", [(torch.float32, torch.complex64),
+                                         (torch.float64, torch.complex128)],
+                         ids=["f32", "f64"])
+def test_grid_helpers_on_the_card(cuda, dtype, ctype):
+    """``expi`` and ``wavenumbers`` on the card against the CPU, in the
+    input's dtype."""
+    from professad_tpu_torch.ops import grid
+    rng = np.random.default_rng(4)
+    theta = torch.tensor(rng.uniform(-30.0, 30.0, (9, 15, 7)), dtype=dtype)
+    got = grid.expi(theta.to(cuda))
+    assert got.dtype == ctype and got.device.type == "cuda"
+    tol = 1e-6 if dtype == torch.float32 else 1e-15
+    assert float((got.cpu() - grid.expi(theta)).abs().max()) <= tol
+    box = torch.tensor(7.3 * np.eye(3) + 0.3 * rng.standard_normal((3, 3)),
+                       dtype=dtype)
+    k = grid.wavenumbers(box.to(cuda), (16, 12, 10))
+    assert k.dtype == dtype and k.shape == (16, 12, 6)
+    assert _rel(k.cpu(), grid.wavenumbers(box, (16, 12, 10))) <= tol
