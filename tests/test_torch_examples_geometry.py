@@ -10,22 +10,12 @@ import os
 import sys
 
 import numpy as np
-import pytest
-import torch
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
 sys.path.insert(0, EXAMPLES)
 
 import torch_geometry_optimization as geo  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_geometry_example_steps():

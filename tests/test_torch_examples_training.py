@@ -33,14 +33,6 @@ TRAIN_SIZES = dict(n=12, gs_n=10, pg_epochs=EPOCHS, nn_epochs=EPOCHS,
                    gs_epochs=EPOCHS)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def training():
     return train.main(device="cpu", **TRAIN_SIZES)

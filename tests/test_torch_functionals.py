@@ -20,7 +20,6 @@ from professad_tpu_torch.models import potentials as tpot
 from professad_tpu_torch.ops.autodiff import get_functional_derivative
 from professad_tpu_torch import System
 from paths import pot
-from test_torch_geometry import one_torch_thread  # noqa: F401
 
 SHAPE = (16, 16, 16)
 RTOL = 1e-10

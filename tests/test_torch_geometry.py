@@ -35,17 +35,6 @@ SHEAR = np.array([[1.0, 0.02, 0.0], [0.0, 1.0, 0.03], [0.01, 0.0, 1.0]])
 A = 3.48
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs one
-    worker process per core, and each worker's thread pool spinning
-    beside the others' slows a relaxation many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ------------------------------ host optimizers ------------------------------
 
 def _rosenbrock(x):

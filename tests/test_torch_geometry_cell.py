@@ -4,8 +4,7 @@ package: the check and its tolerances are in tests/test_torch_geometry.py
 (the first 3 steps at rtol 1e-8, the converged state judged by the
 reference's own forces and stress at rtol 1e-9)."""
 
-from test_torch_geometry import (check_relaxation_matches_jax,  # noqa: F401
-                                 one_torch_thread)
+from test_torch_geometry import check_relaxation_matches_jax
 
 
 def test_optimize_geometry_ions_and_cell_matches_jax(tmp_path):

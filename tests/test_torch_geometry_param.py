@@ -22,7 +22,6 @@ from professad_tpu import models as jm
 from professad_tpu_torch import system as tsys
 from professad_tpu_torch import models as tm
 from paths import pot
-from test_torch_geometry import one_torch_thread  # noqa: F401
 
 SHAPE = (10, 10, 10)
 PRIM = np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])

@@ -10,7 +10,6 @@ set-up and the XLA compiles of its preconditioner and TPGD loop.
 
 import numpy as np
 import pytest
-import torch
 import jax.numpy as jnp
 
 from professad_tpu import models as jm
@@ -23,16 +22,6 @@ HC_ARGS = (0.45, 0.51, 1.2)
 PRIM = 4.05 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])
 KW = dict(ntol=1e-9, jit_loop=True, precondition=True, n_step_size=1.0,
           n_method="TPGD", skip_iters=2, analytic=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs one
-    worker process per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _terms(models):

@@ -30,16 +30,6 @@ HC_ARGS = (0.45, 0.51, 1.2)
 REVHC_ARGS = (0.65, 0.2, 0.55, 1.15)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs one
-    worker process per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _state(shape=(14, 14, 14)):
     rng = np.random.default_rng(5)
     box = 7.3 * np.eye(3) + 0.15 * rng.standard_normal((3, 3))

@@ -22,16 +22,6 @@ from paths import pot
 HC_ARGS = (0.45, 0.51, 1.2)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs one
-    worker process per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 PRIM = 4.05 * np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5]])
 
 

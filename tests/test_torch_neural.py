@@ -22,14 +22,6 @@ from professad_tpu_torch.ops.autodiff import get_functional_derivative
 RTOL = 1e-10
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _state(shape=(14, 14, 14)):
     rng = np.random.default_rng(5)
     box = 7.3 * np.eye(3) + 0.15 * rng.standard_normal((3, 3))

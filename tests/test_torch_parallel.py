@@ -18,9 +18,11 @@ runs every case (``torch_parallel_cases.solve_cases``) while the parent
 computes the references.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
-import torch
 import jax
 import jax.numpy as jnp
 
@@ -31,6 +33,7 @@ from professad_tpu.models import (IonElectron as jIonElectron,
                                   PerdewBurkeErnzerhof as jPBE)
 
 import torch_parallel_cases as C
+import torch_ranks
 from torch_ranks import start_ranks
 
 RANKS = (2, 4)
@@ -47,8 +50,6 @@ def ref(groups):
     """The serial references, computed while the groups run: the port's
     serial runs of every case, and the JAX package's serial TPGD."""
     out = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)     # the ranks have the other cores
     for name in C.SOLVE_RUNS:
         s, n_it, conv = C.run_solve(name)
         out[name] = dict(E=s.energy(), n_it=n_it, conv=conv,
@@ -59,7 +60,6 @@ def ref(groups):
         out[f"fused_{method}"] = dict(
             E=float(s._compute_energy(for_den_opt=True)),
             den=s.density().numpy(), N=s._N_elec, vol=s.volume("b3"))
-    torch.set_num_threads(threads)
     out["jax"] = _jax_ground_state()
     return out
 
@@ -155,3 +155,26 @@ def test_mesh_rejections(groups, p, case):
     err = groups[p].result()["errors"][case]
     assert err is not None and err.startswith("ValueError"), err
     assert REJECTIONS[case] in err, err
+
+
+def test_ranks_past_deadline_are_terminated(tmp_path, monkeypatch):
+    """``result()`` raises at its deadline, naming the ranks still alive,
+    leaves none of them running, and raises the same error when asked
+    again."""
+    deadline = 8
+    monkeypatch.setattr(torch_ranks, "RANK_DEADLINE_S", deadline)
+    t0 = time.monotonic()
+    g = start_ranks(C.sleep_cases, 2, tmp_path)
+    caught = []
+    waiter = threading.Thread(target=lambda: caught.append(
+        pytest.raises(TimeoutError, g.result).value), daemon=True)
+    waiter.start()
+    waiter.join(deadline + 60)
+    waited = time.monotonic() - t0
+    assert not waiter.is_alive(), "result() did not return"
+    assert caught and "ranks [0, 1] of 2" in str(caught[0]), caught
+    assert waited < deadline + 15, waited
+    assert not any(p.is_alive() for p in g._ctx.processes)
+    with pytest.raises(TimeoutError) as again:
+        g.result()
+    assert again.value is caught[0]

@@ -16,7 +16,6 @@ fit amplifies the per-volume energies' rounding).
 
 import numpy as np
 import pytest
-import torch
 
 import torch_parallel_cases as C
 from torch_ranks import start_ranks
@@ -34,8 +33,6 @@ def groups(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ref(groups):
     """The serial getters and scans, computed while the groups run."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     s = C.implicit_state()
     r = dict(P=s.pressure(), H=s.enthalpy(), K=s.bulk_modulus(),
              C=s.elastic_constants().numpy(),
@@ -44,7 +41,6 @@ def ref(groups):
              eos_grid=np.asarray(C.fcc_al().eos_fit(**C.EOS)[0]),
              eos_batch=np.asarray(C.fcc_al().eos_fit(batched=True,
                                                      **C.EOS)[0]))
-    torch.set_num_threads(threads)
     return r
 
 

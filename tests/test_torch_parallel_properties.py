@@ -36,15 +36,12 @@ def groups(tmp_path_factory):
 def serial(groups):
     """The serial references, computed while the groups run; those at a
     group's density by ``at_density``."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     r = {"hc_E": float(C.hc_system()._compute_energy())}
     s = C.li2(C.RELAX_SHAPE)
     _, p = s.optimize_parameterized_geometry(
         torch.tensor([C.LI_LEN], dtype=torch.float64), C.geometry,
         **C.GEOM_STEP)
     r["param_p"] = p.numpy()
-    torch.set_num_threads(threads)
     return r
 
 

@@ -9,15 +9,20 @@ level function of a module that imports no JAX) with a ("batch", "grid")
 mesh over all ranks; rank 0's returned dict of numpy arrays and numbers is
 sent back to the parent by ``.result()``.  One group serves all of a test
 file's cases, and the groups run while the parent computes its references.
+``result()`` waits at most ``RANK_DEADLINE_S`` seconds from the start:
+then it terminates the ranks still alive and raises, naming them, and
+raises the same error on every later call.
 """
 
 import os
 import pickle
 import sys
+import time
 import traceback
 
 import torch.multiprocessing as mp
 
+RANK_DEADLINE_S = 240
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -43,20 +48,27 @@ def _worker(rank, nprocs, rdv, module, name, out_dir):
 class start_ranks:
     """Start ``cases`` on ``nprocs`` gloo ranks without waiting;
     ``result()`` joins them and returns rank 0's dict.  A rank that raised
-    fails ``result()`` with that rank's traceback."""
+    fails ``result()`` with that rank's traceback; ranks still alive
+    ``RANK_DEADLINE_S`` seconds after the start are terminated and fail
+    it."""
 
     def __init__(self, cases, nprocs, tmp):
         self.nprocs, self.tmp = nprocs, str(tmp)
+        self._end = time.monotonic() + RANK_DEADLINE_S
         self._ctx = mp.start_processes(
             _worker, args=(nprocs, os.path.join(self.tmp, "rdv"),
                            cases.__module__, cases.__name__, self.tmp),
             nprocs=nprocs, start_method="spawn", join=False)
-        self._out = None
+        self._out = self._timeout = None
 
     def result(self):
+        if self._timeout is not None:
+            raise self._timeout
         if self._out is None:
-            while not self._ctx.join():
-                pass
+            while not self._ctx.join(
+                    timeout=max(self._end - time.monotonic(), 0)):
+                if time.monotonic() >= self._end:
+                    self._stop()
             out = {}
             for r in range(self.nprocs):
                 with open(os.path.join(self.tmp, f"rank{r}.pkl"), "rb") as fh:
@@ -67,3 +79,17 @@ class start_ranks:
                         f"rank {r} of {self.nprocs} failed:\n{err}")
             self._out = out[0][0]
         return self._out
+
+    def _stop(self):
+        procs = self._ctx.processes
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        for r in alive:
+            procs[r].terminate()
+            procs[r].join(5)
+            if procs[r].is_alive():
+                procs[r].kill()
+                procs[r].join()
+        self._timeout = TimeoutError(
+            f"ranks {alive} of {self.nprocs} still running "
+            f"{RANK_DEADLINE_S} s after the start; terminated")
+        raise self._timeout
