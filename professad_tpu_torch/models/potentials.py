@@ -48,7 +48,8 @@ from .kinetic_nonlocal import (G_inv_lind, G_inv_gap, WGC98_ALPHA, WGC98_BETA,
                                _stabilizer_fprime0, _wgc99_kernel,
                                _xwm_kernels)
 
-__all__ = ["value_and_potential", "supported_terms", "SpectralCtx"]
+__all__ = ["value_and_potential", "supported_terms", "SpectralCtx",
+           "bind_sweep", "capturable_terms"]
 
 
 class SpectralCtx:
@@ -570,13 +571,18 @@ def _quotient_chain(ctx, E_nl, pot_nl, f, fprime0=1.0):
     return E, pot
 
 
-def _vp_wtsf(ctx, owner):
+def _vp_wtsf(ctx, owner, alpha, beta):
     """WangTeterStyleFunctional: the quotient chain over the WT-style
-    nonlocal term."""
-    params = _detached(owner)
-    E_nl, pot_nl = _vp_nlkef(ctx, float(params["alpha"]),
-                             float(params["beta"]))
+    nonlocal term, with the exponents ``alpha``, ``beta`` as host floats
+    (read once per binding, ``_bind_wtsf``)."""
+    E_nl, pot_nl = _vp_nlkef(ctx, alpha, beta)
     return _quotient_chain(ctx, E_nl, pot_nl, owner.f, owner.fprime0)
+
+
+def _bind_wtsf(owner, aux):
+    params = _detached(owner)
+    alpha, beta = float(params["alpha"]), float(params["beta"])
+    return lambda ctx: _vp_wtsf(ctx, owner, alpha, beta)
 
 
 def _vp_wgc99(ctx, owner):
@@ -943,18 +949,25 @@ _DISPATCH = {
 }
 
 # trainable functionals, dispatched by the class of the owning module:
-# fn(ctx, owner, aux) with aux the term's entry of System's term-aux list
+# bind(owner, aux) -> (ctx -> (E, pot)), with aux the term's entry of
+# System's term-aux list; a binder reads the host scalars its term needs
 _INSTANCE_DISPATCH = {
-    "PauliGaussian": lambda ctx, owner, aux: _vp_pauli_gaussian(
+    "PauliGaussian": lambda owner, aux: lambda ctx: _vp_pauli_gaussian(
         ctx, _detached(owner)),
-    "WangTeterStyleFunctional": lambda ctx, owner, aux: _vp_wtsf(ctx, owner),
-    "MiGenovaPavanello": lambda ctx, owner, aux: _vp_mgp(ctx, owner),
-    "HuangCarter": _vp_hc_family,
-    "RevisedHuangCarter": _vp_hc_family,
-    "WangGovindCarter99": lambda ctx, owner, aux: _vp_wgc99(ctx, owner),
-    "FoleyMadden": lambda ctx, owner, aux: _vp_fm(ctx, owner),
-    "YukawaGGA": lambda ctx, owner, aux: _vp_yukawa(ctx, owner),
+    "WangTeterStyleFunctional": _bind_wtsf,
+    "MiGenovaPavanello": lambda owner, aux: lambda ctx: _vp_mgp(ctx, owner),
+    "HuangCarter": lambda owner, aux: lambda ctx: _vp_hc_family(ctx, owner,
+                                                                aux),
+    "RevisedHuangCarter": lambda owner, aux: lambda ctx: _vp_hc_family(
+        ctx, owner, aux),
+    "WangGovindCarter99": lambda owner, aux: lambda ctx: _vp_wgc99(ctx,
+                                                                   owner),
+    "FoleyMadden": lambda owner, aux: lambda ctx: _vp_fm(ctx, owner),
+    "YukawaGGA": lambda owner, aux: lambda ctx: _vp_yukawa(ctx, owner),
 }
+
+# the trainable functionals whose bound sweep reads nothing to the host
+_CAPTURABLE_INSTANCES = ("PauliGaussian", "WangTeterStyleFunctional")
 
 
 def _owner(t):
@@ -993,7 +1006,7 @@ def _term_vp(t, aux):
     if cls == "YukawaGGA" and (owner._preset is None or not owner.spline):
         return None
     if cls in _INSTANCE_DISPATCH:
-        return lambda ctx: _INSTANCE_DISPATCH[cls](ctx, owner, aux)
+        return _INSTANCE_DISPATCH[cls](owner, aux)
     return _DISPATCH.get(term_name(t))
 
 
@@ -1006,14 +1019,33 @@ def supported_terms(terms):
                for t in terms)
 
 
-def value_and_potential(terms, box_vecs, den, v_ext, N_elec=None, aux=None):
-    """Total (E, dE/dn) over the term list in ONE fused forward sweep.
+def capturable_terms(terms):
+    """True iff the bound sweep over ``terms`` (:func:`bind_sweep`) reads
+    nothing to the host, so a CUDA graph may capture it: every term of
+    ``_DISPATCH`` and the trainable functionals of
+    ``_CAPTURABLE_INSTANCES``.  The keyword partials, XuWangMa and the
+    other trainable functionals read host scalars or tables in every
+    evaluation."""
+    for t in terms:
+        if term_name(t) == "IonIon":
+            continue
+        if t is XuWangMa or isinstance(t, functools.partial):
+            return False
+        cls = type(_owner(t)).__name__
+        if cls in _INSTANCE_DISPATCH:
+            if cls not in _CAPTURABLE_INSTANCES:
+                return False
+        elif term_name(t) not in _DISPATCH:
+            return False
+    return True
 
-    ``aux``: the per-term list of ``System._collect_term_aux`` (the
-    kernel slabs the ladder terms' ``prepare`` hoisted), or None.  Raises
-    KeyError for a term without a fused form (gate with
-    :func:`supported_terms`)."""
-    ctx = SpectralCtx(box_vecs, den, v_ext, N_elec=N_elec)
+
+def bind_sweep(terms, aux=None):
+    """The fused sweep over the term list as a function
+    ``(box_vecs, den, v_ext, N_elec=None) -> (E, dE/dn)``, with the host
+    scalars of the terms (a trainable functional's exponents) read now,
+    once, and not in every evaluation.  Bind again after the parameters
+    change.  ``aux`` and the KeyError as in :func:`value_and_potential`."""
     fns = []
     for i, t in enumerate(terms):
         nm = term_name(t)
@@ -1023,4 +1055,17 @@ def value_and_potential(terms, box_vecs, den, v_ext, N_elec=None, aux=None):
         if fn is None:
             raise KeyError(f"no fused analytic potential for term {nm!r}")
         fns.append(fn)
-    return _sum_vp(ctx, fns)
+
+    def sweep(box_vecs, den, v_ext, N_elec=None):
+        return _sum_vp(SpectralCtx(box_vecs, den, v_ext, N_elec=N_elec), fns)
+    return sweep
+
+
+def value_and_potential(terms, box_vecs, den, v_ext, N_elec=None, aux=None):
+    """Total (E, dE/dn) over the term list in ONE fused forward sweep.
+
+    ``aux``: the per-term list of ``System._collect_term_aux`` (the
+    kernel slabs the ladder terms' ``prepare`` hoisted), or None.  Raises
+    KeyError for a term without a fused form (gate with
+    :func:`supported_terms`)."""
+    return bind_sweep(terms, aux)(box_vecs, den, v_ext, N_elec)

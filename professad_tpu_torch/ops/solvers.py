@@ -31,7 +31,16 @@ stagnation damping and the best-iterate choice need), per block of
 ``block`` iterations for L-BFGS (the convergence measure).  The host logic
 then runs in float64, exactly as the JAX package's f64 scalar logic.
 Everything else stays on the device with no further synchronisation.
-Capturing the iteration in a CUDA graph is later work.
+
+CUDA graph of the TPGD iteration: where ``tpgd_minimize`` can observe that
+the iteration may be captured (CUDA tensors, no ``group``, no ``stop_fn``,
+and the caller's ``capturable=True``: a ``value_and_grad`` and
+``apply_H0`` that read nothing to the host), iteration 0 runs eagerly,
+every later iteration of the call is one replay of a graph captured once
+over the state's own tensors (``_IterationGraph``), and the host rule
+reads the same scalar from the same iterates, bitwise those of the eager
+loop.  ``graph_replays`` and ``eager_iterations`` count how the
+iterations of ``tpgd_minimize`` ran in this process.
 
 SPMD mode (``group=``, the JAX package's ``axis_name``): ``x0`` is this
 rank's block of a variable split over a ``torch.distributed`` group, and
@@ -51,7 +60,10 @@ import torch
 __all__ = ["LBFGSState", "lbfgs_init", "lbfgs_iterations", "lbfgs_minimize",
            "TPGDState", "tpgd_init", "tpgd_step", "tpgd_iteration",
            "tpgd_minimize", "cg", "tpgd_minimize_lanes",
-           "lbfgs_minimize_lanes"]
+           "lbfgs_minimize_lanes", "graph_replays", "eager_iterations"]
+
+graph_replays = 0      # tpgd_minimize iterations issued as one graph replay
+eager_iterations = 0   # tpgd_minimize iterations run eagerly
 
 class LBFGSState(NamedTuple):
     x: torch.Tensor         # parameter array (caller's shape, preserved)
@@ -230,6 +242,16 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0,
     state.  ``s_prev`` stores the exact difference fl(x_new) - fl(x_old):
     near the fixed point it hits exact zero, which is what lets the f32
     iteration stop cleanly."""
+    x_new, s_new, Mg = _tpgd_move(st, lr, apply_H0, scale, group)
+    f_new, g_new = value_and_grad(x_new)
+    return TPGDState(x=x_new, f=f_new, g=g_new.reshape(st.x.shape),
+                     g_prev=st.g, Mg_prev=Mg, s_prev=s_new,
+                     n_iter=st.n_iter + 1)
+
+
+def _tpgd_move(st, lr, apply_H0, scale, group):
+    """The move of one TPGD iteration: (x_new, s_new, M g).  Its
+    temporaries die on return, before the new point is evaluated."""
     M = (lambda v: v) if apply_H0 is None else apply_H0
     y = st.g - st.g_prev
     Mg = M(st.g)
@@ -245,20 +267,120 @@ def tpgd_iteration(value_and_grad, st, lr, apply_H0=None, scale=1.0,
         H = torch.where(ys <= 0.0, lr, ys / torch.where(yMy != 0, yMy, 1.0))
         t = H * scale
     x_new = st.x + t * d
-    s_new = x_new - st.x
-    f_new, g_new = value_and_grad(x_new)
-    return TPGDState(x=x_new, f=f_new, g=g_new.reshape(st.x.shape),
-                     g_prev=st.g, Mg_prev=Mg, s_prev=s_new,
-                     n_iter=st.n_iter + 1)
+    return x_new, x_new - st.x, Mg
+
+
+class _IterationGraph:
+    """TPGD iterations (``n_iter > 0``) as replays of one CUDA graph.
+
+    The state ``st`` left by an eager iteration becomes the graph's static
+    buffers: the captured iteration reads x, f, g, g_prev, Mg_prev, s_prev
+    and overwrites them with the next iterate, running the eager
+    iteration's kernels on the same values in the same order, so every
+    iterate is bitwise the eager loop's.  The new x and s are copied into
+    the state before the new point is evaluated, so fewer grid fields are
+    live than in an eager iteration.  The damping scale is a 0-d buffer,
+    rewritten only when the host changes it; ``lr`` is a constant of the
+    capture.  The best iterate, which replays would overwrite, is kept by
+    copy (``keep``).  Kernel calls that ``spectral_conv.launches`` counted
+    while capturing are counted again at each replay instead."""
+
+    def __init__(self, value_and_grad, st, lr, apply_H0, scale):
+        self.st = st
+        self.damp = scale
+        self.scale = torch.full((), scale, dtype=st.x.dtype,
+                                device=st.x.device)
+        self.best_x = self.best_f = None
+
+        def iteration():
+            x_new, s_new, Mg = _tpgd_move(st, lr, apply_H0, self.scale,
+                                          None)
+            st.s_prev.copy_(s_new)
+            st.x.copy_(x_new)
+            st.Mg_prev.copy_(Mg)
+            st.g_prev.copy_(st.g)
+            del x_new, s_new, Mg
+            f_new, g_new = value_and_grad(st.x)
+            st.g.copy_(g_new.reshape(st.g.shape))
+            st.f.copy_(f_new)
+
+        from . import spectral_conv as sc
+        before = sc.launches
+        self.replay = _cuda_graph(iteration, st.x.device)
+        self.calls = sc.launches - before    # the capture ran none
+        sc.launches = before
+
+    def step(self, scale):
+        """One iteration: the state's tensors hold the next iterate."""
+        from . import spectral_conv as sc
+        global graph_replays
+        if scale != self.damp:
+            self.scale.fill_(scale)
+            self.damp = scale
+        self.replay()
+        sc.launches += self.calls
+        graph_replays += 1
+        self.st = self.st._replace(n_iter=self.st.n_iter + 1)
+        return self.st
+
+    def keep(self, f, x):
+        """Copy (f, x) into the best-iterate buffers; returns them."""
+        if self.best_x is None:
+            self.best_x, self.best_f = torch.empty_like(x), torch.empty_like(f)
+        self.best_x.copy_(x)
+        self.best_f.copy_(f)
+        return self.best_f, self.best_x
+
+
+# per device: (the capture stream, the last graph captured on it).  One
+# stream and one memory pool serve every capture, so solves on one device
+# run one at a time: not from several threads at once.
+_CAPTURES = {}
+
+
+def _cuda_graph(fn, device):
+    """Capture ``fn()`` on the device's capture stream; returns the graph's
+    replay on the current stream.  Every capture on a device runs on one
+    stream and allocates from the memory pool of the previous capture,
+    whose graph it then replaces: that graph's blocks are all free once
+    its solve has returned, and the allocator reuses a block only on the
+    stream that freed it, so a capture of the same shapes allocates no new
+    device memory, and no solve frees any."""
+    side, prev = _CAPTURES.get(device, (None, None))
+    if side is None:
+        side = torch.cuda.Stream(device)
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=None if prev is None else prev.pool())
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    _CAPTURES[device] = (side, graph)
+    return graph.replay
+
+
+def _graph_engages(capturable, x0, group, stop_fn):
+    """Whether ``tpgd_minimize`` issues its iterations as graph replays:
+    the caller's sweep is capturable, the state is on CUDA, and nothing
+    but the energy is read to the host (no ``group``, no ``stop_fn``)."""
+    return capturable and x0.is_cuda and group is None and stop_fn is None
 
 
 def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
                   max_iter=1000, f_scale=1.0, skip_iters=2, apply_H0=None,
-                  stop_fn=None, stag_k=6, track_best=True, group=None):
+                  stop_fn=None, stag_k=6, track_best=True, group=None,
+                  capturable=False):
     """Preconditioned TPGD to convergence.  Returns (state, n_iters,
     converged).  ``stop_fn(state, f_prev) -> 0-d tensor`` replaces the
     default convergence measure ``|dE| * f_scale`` (one more scalar read
     per iteration); ``group``: SPMD mode (module docstring).
+    ``capturable=True`` says that ``value_and_grad`` and ``apply_H0`` read
+    nothing to the host and depend only on their argument and tensors that
+    live through the call: the iterations after the first are then graph
+    replays where the state is on CUDA (module docstring).
 
     Stagnation damping: after ``stag_k`` consecutive iterations without a
     new best energy by more than the dtype's resolution (8 eps |f_best|),
@@ -279,17 +401,30 @@ def tpgd_minimize(value_and_grad, x0, lr=0.1, ntol=1e-7, conv_count=3,
     best = (f0, x0) if track_best else None
     cnt = it = stag = 0
     damp = 1.0
+    graphed = _graph_engages(capturable, x0, group, stop_fn)
+    graph = None
+    global eager_iterations
     while cnt < conv_count and it < max_iter:
         f_prev_t = st.f
-        st = tpgd_iteration(value_and_grad, st, lr, apply_H0=apply_H0,
-                            scale=damp, group=group)
+        if graphed and st.n_iter > 0:
+            if graph is None:
+                graph = _IterationGraph(value_and_grad, st, lr, apply_H0,
+                                        damp)
+                if track_best:
+                    best = graph.keep(*best)
+            st = graph.step(damp)
+        else:
+            st = tpgd_iteration(value_and_grad, st, lr, apply_H0=apply_H0,
+                                scale=damp, group=group)
+            eager_iterations += 1
         f_new = _host(st.f, group)
         tol_stag = 8.0 * eps * max(abs(f_best), 1.0)
         improved = f_best - f_new > tol_stag
         if f_new < f_best:
             f_best = f_new
             if track_best:
-                best = (st.f, st.x)
+                best = ((st.f, st.x) if graph is None
+                        else graph.keep(st.f, st.x))
         stag = 0 if improved else stag + 1
         if stag >= stag_k:
             damp *= 0.5

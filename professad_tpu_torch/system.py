@@ -526,11 +526,15 @@ class System:
             lambda b, n: self._density_terms_energy(b, n, v_ext, aux=aux))
 
     def _chi_value_and_grad_analytic(self, chi, box_vecs, v_ext, N_elec,
-                                     aux=None):
+                                     aux=None, sweep=None):
         """(E, dE/dchi) via the fused analytic potentials
         (``models/potentials.py``): one forward sweep, no autograd graph.
-        Equal to autograd of ``_chi_energy`` at f64."""
-        from .models.potentials import value_and_potential
+        Equal to autograd of ``_chi_energy`` at f64.  ``sweep``: the terms'
+        sweep bound once for a whole solve (``potentials.bind_sweep``), or
+        None to bind it in this call."""
+        if sweep is None:
+            from .models.potentials import bind_sweep
+            sweep = bind_sweep(self._terms, aux)
         shape_in = chi.shape
         chi = chi.reshape(self._shape)
         vol = volume(box_vecs)
@@ -543,8 +547,7 @@ class System:
         else:
             s = 1.0
             den = den_pre
-        E, pot = value_and_potential(self._terms, box_vecs, den, v_ext,
-                                     N_elec=N_elec, aux=aux)
+        E, pot = sweep(box_vecs, den, v_ext, N_elec=N_elec)
         quad_w = vol / den.numel()
         # chain through the chi-parameterisation (+ f32 floor scale s):
         # dE/dchi_j = s (N/N~) 2 chi_j w (pot_j - mu),
@@ -854,9 +857,10 @@ class System:
                and (jit_loop or n_method == "LBFGS") else None)
 
         if jit_loop:
-            vg = vg_auto if not analytic else (
-                lambda x: self._chi_value_and_grad_analytic(x, box, v_ext,
-                                                            N_elec, aux))
+            vg, kw = vg_auto, {}
+            if analytic:
+                vg, kw = self._analytic_solve_fn(box, v_ext, N_elec, aux,
+                                                 n_method)
             minimize = (solvers.tpgd_minimize if n_method == "TPGD"
                         else functools.partial(solvers.lbfgs_minimize,
                                                block=block))
@@ -865,12 +869,26 @@ class System:
                 conv_count=n_conv_cond_count, max_iter=round(n_maxiter),
                 f_scale=EV_PER_HA, skip_iters=skip_iters, apply_H0=aH0,
                 stop_fn=self._make_stop_fn(conv_target, box, v_ext, N_elec,
-                                           aux))
+                                           aux), **kw)
         else:
             state, n_it, conv = self._host_loop(
                 vg_auto, chi0, n_method, n_step_size, aH0, ntol,
                 n_conv_cond_count, round(n_maxiter), conv_target, n_verbose)
         return self._store_optimized(state, n_it, conv, n_verbose)
+
+    def _analytic_solve_fn(self, box, v_ext, N_elec, aux, n_method):
+        """The fused analytic chi gradient of one solve, with the terms'
+        host scalars read once (``potentials.bind_sweep``), and the
+        solver keywords: TPGD may issue its iterations as CUDA graph
+        replays where the sweep reads nothing to the host
+        (``solvers.tpgd_minimize(capturable=)``)."""
+        from .models.potentials import bind_sweep, capturable_terms
+        sweep = bind_sweep(self._terms, aux)
+        kw = {}
+        if n_method == "TPGD":
+            kw["capturable"] = capturable_terms(self._terms)
+        return (lambda x: self._chi_value_and_grad_analytic(
+            x, box, v_ext, N_elec, aux, sweep=sweep)), kw
 
     def _check_mesh_run(self, mesh, jit_loop, potentials, conv_target):
         """The arguments ``optimize_density(mesh=)`` rejects; attaches the
@@ -1704,10 +1722,10 @@ class System:
         N_elec = float(self._N_elec)
         dt = self._dtype if dtype is None else dtype
 
-        def value_and_grad(x, box, v_ext, M):
+        def value_and_grad(x, box, v_ext, M, sweep=None):
             if analytic:
                 return self._chi_value_and_grad_analytic(x, box, v_ext,
-                                                         N_elec)
+                                                         N_elec, sweep=sweep)
             g, E = torch.func.grad_and_value(self._chi_energy)(
                 x, box, v_ext, N_elec)
             return E, g
@@ -1730,8 +1748,12 @@ class System:
             def solve(chi, box, v_ext):
                 b, v = box.to(dt), v_ext.to(dt)
                 M = torch.func.vmap(kernel)(b)
-                st, its, conv = minimize(value_and_grad, chi.to(dt),
-                                         lanes=(b, v, M),
+                vg = value_and_grad
+                if analytic:   # the terms' host scalars read once a solve
+                    from .models.potentials import bind_sweep
+                    vg = functools.partial(value_and_grad,
+                                           sweep=bind_sweep(self._terms))
+                st, its, conv = minimize(vg, chi.to(dt), lanes=(b, v, M),
                                          apply_H0=apply_H0, **kw)
                 fs = [self._eos_energy(st.x[i], box[i], v_ext[i])
                       for i in range(chi.shape[0])]
@@ -1744,9 +1766,14 @@ class System:
         def solve(chi, box, v_ext):
             b, v = box.to(dt), v_ext.to(dt)
             M = kernel(b)
+            if analytic:
+                vg, kw_vg = self._analytic_solve_fn(b, v, N_elec, None,
+                                                    n_method)
+            else:
+                vg, kw_vg = (lambda x: value_and_grad(x, b, v, M)), {}
             st, it, conv = minimize(
-                lambda x: value_and_grad(x, b, v, M), chi.to(dt),
-                apply_H0=lambda q: apply_H0(q, b, v, M), **kw)
+                vg, chi.to(dt), apply_H0=lambda q: apply_H0(q, b, v, M),
+                **kw, **kw_vg)
             return self._eos_energy(st.x, box, v_ext), conv, it
         return solve
 

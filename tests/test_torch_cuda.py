@@ -798,3 +798,141 @@ def test_grid_helpers_on_the_card(cuda, dtype, ctype):
     k = grid.wavenumbers(box.to(cuda), (16, 12, 10))
     assert k.dtype == dtype and k.shape == (16, 12, 6)
     assert _rel(k.cpu(), grid.wavenumbers(box, (16, 12, 10))) <= tol
+
+
+def _wt_exp_system(device, dtype, n=32):
+    """4-atom fcc Al, one ion displaced, WT-exp + PBE at n^3."""
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeterStyleFunctional,
+                                            PerdewBurkeErnzerhof)
+    frac = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                     [0.0, 0.48, 0.53]])
+    wt = WangTeterStyleFunctional((5.0 / 6.0, 5.0 / 6.0, torch.exp))
+    return System(4.05 * np.eye(3), (n, n, n), [["Al", POT, frac]],
+                  [IonIon, IonElectron, Hartree, wt.to(device).forward,
+                   PerdewBurkeErnzerhof], units="a", coord_type="fractional",
+                  device=device, dtype=dtype)
+
+
+def _graph_solve(s, capturable, stag_k=6, track_best=True):
+    """tpgd_minimize on the System's fused analytic path from the uniform
+    start, as ``optimize_density(jit_loop=True, analytic=True)`` calls it;
+    returns (state, iterations, converged, spectral_conv calls, graph
+    replays)."""
+    from professad_tpu_torch.ops import solvers
+    from professad_tpu_torch.ops.grid import safe_sqrt
+    dt = s._dtype
+    box, v_ext, N = s._box_vecs.to(dt), s._v_ext.to(dt), float(s._N_elec)
+    vg, _ = s._analytic_solve_fn(box, v_ext, N, None, "TPGD")
+    M = s._apply_spectral(s._precond_kernel(box, N))
+    calls, replays = sc.launches, solvers.graph_replays
+    st, it, conv = solvers.tpgd_minimize(
+        vg, safe_sqrt(s._uniform_density()).to(dt), lr=1.0, ntol=1e-9,
+        conv_count=3, max_iter=300, f_scale=27.211386245988, skip_iters=2,
+        apply_H0=M, stag_k=stag_k, track_best=track_best,
+        capturable=capturable)
+    torch.cuda.synchronize()
+    return (st, it, conv, sc.launches - calls,
+            solvers.graph_replays - replays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stag_k,track_best", [(6, True), (2, True),
+                                               (2, False)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_tpgd_graph_is_bitwise_the_eager_loop(cuda, dtype, stag_k,
+                                              track_best):
+    """The TPGD iterations as CUDA graph replays against the eager loop on
+    the card, WT-exp + PBE at 32^3: bitwise x, f and g, the same
+    iteration count, every iteration after the first a replay, and
+    ``spectral_conv.launches`` advanced by the same count."""
+    s = _wt_exp_system(cuda, dtype)
+    st_e, it_e, conv_e, calls_e, rep_e = _graph_solve(s, False, stag_k,
+                                                      track_best)
+    st_g, it_g, conv_g, calls_g, rep_g = _graph_solve(s, True, stag_k,
+                                                      track_best)
+    assert rep_e == 0 and rep_g == it_g - 1 > 0
+    assert (it_g, conv_g) == (it_e, conv_e)
+    assert calls_g == calls_e >= 3 * it_e
+    assert torch.equal(st_g.x, st_e.x) and torch.equal(st_g.f, st_e.f)
+    assert torch.equal(st_g.g, st_e.g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_optimize_density_graph_on_and_off(cuda, monkeypatch, dtype):
+    """``optimize_density`` on the card (TPGD, jit_loop, analytic) takes
+    the graph by itself and leaves bitwise the density and energy of the
+    same call with the graph kept off, and no more memory allocated: the
+    graph's buffers are released when it returns."""
+    from professad_tpu_torch.ops import solvers
+    kw = dict(ntol=1e-9, n_method="TPGD", n_step_size=1.0, skip_iters=2,
+              jit_loop=True, precondition=True, from_uniform=True,
+              analytic=True)
+    s = _wt_exp_system(cuda, dtype)
+    rep = solvers.graph_replays
+    n_on, conv_on = s.optimize_density(**kw)
+    den_on, E_on = s.density().clone(), s.energy()
+    torch.cuda.synchronize()
+    held_on = torch.cuda.memory_allocated()
+    assert conv_on and solvers.graph_replays - rep == n_on - 1
+    monkeypatch.setattr(solvers, "_graph_engages", lambda *a: False)
+    rep = solvers.graph_replays
+    n_off, _ = s.optimize_density(**kw)
+    torch.cuda.synchronize()
+    held_off = torch.cuda.memory_allocated()
+    assert held_off == held_on, (held_off, held_on)
+    assert solvers.graph_replays == rep and n_off == n_on
+    assert torch.equal(s.density(), den_on) and s.energy() == E_on
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", FUNCTIONALS + ["WT+PBE", "main"])
+def test_capturable_sweep_replays_bitwise(cuda, name, dtype):
+    """Every term set ``capturable_terms`` admits: its bound sweep
+    captured in a CUDA graph and replayed on a new density gives bitwise
+    the eager sweep's energy and potential."""
+    from professad_tpu_torch import models as tm
+    from professad_tpu_torch.models import potentials as tpot
+    from professad_tpu_torch.ops.solvers import _cuda_graph
+    rng = np.random.default_rng(5)
+    shape = (18, 18, 18)
+    z = dict(dtype=dtype, device=cuda)
+    box = torch.tensor(7.0 * np.eye(3) + 0.2 * rng.standard_normal((3, 3)),
+                       **z)
+    v_ext = torch.tensor(0.1 * rng.standard_normal(shape), **z)
+    dens = [torch.tensor(0.01 + 0.02 * rng.random(shape), **z)
+            for _ in range(2)]
+    if name == "WT+PBE":
+        terms = [tm.IonElectron, tm.Hartree, tm.WangTeter,
+                 tm.PerdewBurkeErnzerhof]
+    elif name == "main":
+        terms = [tm.IonElectron, tm.Hartree,
+                 tm.WangTeterStyleFunctional((5.0 / 6.0, 5.0 / 6.0,
+                                              torch.exp)).to(cuda).forward,
+                 tm.PerdewBurkeErnzerhof]
+    else:
+        term = _functionals()[name]
+        terms = [term.to(cuda) if isinstance(term, torch.nn.Module)
+                 else term]
+    assert tpot.capturable_terms(terms)
+    sweep = tpot.bind_sweep(terms)
+    den = dens[0].clone()
+    sweep(box, den, v_ext, N_elec=3.0)          # warm-up, as iteration 0
+    out = {}
+
+    def body():
+        out["E"], out["pot"] = sweep(box, den, v_ext, N_elec=3.0)
+
+    replay = _cuda_graph(body, cuda)
+    for d in dens:
+        den.copy_(d)
+        replay()
+        E_ref, p_ref = sweep(box, d, v_ext, N_elec=3.0)
+        torch.cuda.synchronize()
+        assert torch.equal(out["E"], E_ref) and torch.equal(out["pot"], p_ref)
