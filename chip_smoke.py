@@ -138,9 +138,24 @@ Phases (any failure exits non-zero):
      bit-exact, and the ground-state training's last loss is not above
      its first (per epoch it rises at the first applied Rprop step, in
      both packages).
+ 18. the ion-ion pair kernel (csrc/ion_pairs.cu) at the benchmark's
+     shapes: the 2048-ion fcc Al cell (1935 images) and the 96-ion hcp Mg
+     cell, ions displaced by a seeded 0.10 A Gaussian, Rc six heights of
+     the cell and a hair (no image exactly on the cutoff, where the two
+     round apart), f64.  The autograd Function through the kernel against
+     the plain torch form (_pair_energy_torch, _pair_grads_torch) on the
+     same card inputs: the pair energy within 1e-12 relative, Q exactly,
+     dE/dR within 1e-10 Ha/bohr and dE/dh within 1e-10 of its largest;
+     then the kernel's time for an energy and for an energy with
+     gradients, the torch form's, and the FP64 bound of the pairs within
+     Rc (benchmark/harness/pair_roofline.py).  The kernel's launches are
+     counted over the main path (phase 6: the System's set-up, the
+     optimisation, forces and stress).
 
-Output: one line per measurement, then the kernels' JSON line, the card's
-nvidia-smi line, and last {"ok": true, "device": {...}}.  Needs a CUDA
+Output: one line per measurement, then the kernels' JSON line (its
+ion_pair_sum entry: the main path's launches and phase 18's 2048-ion
+numbers), the card's nvidia-smi line, and last {"ok": true, "device":
+{...}}.  Needs a CUDA
 device; there is no CPU fallback.
 """
 
@@ -1820,12 +1835,104 @@ def phase_examples(device, card):
     return launches
 
 
+PAIR_CONFIGS = (("al2048", "al-fcc-2048-wt-pbe-f64.json"),
+                ("mg96", "mg-hcp-96-wtexp-pbe-f64.json"))
+
+
+def _pair_case(conf, device):
+    """(h, R, Z, shifts, Rc, Rd) [bohr] of a benchmark configuration's
+    supercell on ``device``, the ions displaced by a seeded 0.10 A
+    Gaussian a component; Rc six heights and a hair, Rd as System takes
+    it."""
+    import torch
+    from professad_tpu_torch.models import ions
+    from harness.spec import (A_PER_BOHR, ideal_cell, ion_ion_rc_bohr,
+                              recpot_path)
+    box_A, frac = ideal_cell(conf)
+    cart_A = frac @ box_A + 0.1 * np.random.default_rng(11).standard_normal(
+        frac.shape)
+    box = box_A / A_PER_BOHR
+    h_max = float(np.max(1.0 / np.sqrt(np.sum(np.linalg.inv(box.T) ** 2,
+                                               axis=1))))
+    Rc = ion_ion_rc_bohr(conf) * (1.0 + 1e-9)
+    Rd = float(np.sqrt(h_max * Rc / 3.0))
+    t = dict(dtype=torch.float64, device=device)
+    Z = float(ions.get_ion_charge(recpot_path(conf)))
+    return (torch.tensor(box, **t), torch.tensor(cart_A / A_PER_BOHR, **t),
+            torch.full((len(frac),), Z, **t),
+            torch.tensor(ions.neighbor_shifts(box, Rc), **t), Rc, Rd)
+
+
+def phase_pairs(device, configs=PAIR_CONFIGS):
+    """The ion-ion pair kernel against its torch form at the benchmark's
+    shapes (module docstring, phase 18); ``configs`` are (tag, file under
+    benchmark/configs).  Returns the first case's numbers for the kernels
+    line."""
+    import torch
+    bench = os.path.join(ROOT, "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness.pair_roofline import (ENERGY_FLOPS_PER_PAIR,
+                                       FORCE_FLOPS_PER_PAIR, pairs_within)
+    from harness.roofline import PEAKS
+    from harness.spec import load_json
+    from professad_tpu_torch.models import ions
+    from professad_tpu_torch.ops.grid import volume
+    out, failed = {}, []
+    for tag, name in configs:
+        conf = load_json(os.path.join(bench, "configs", name))
+        h, R, Z, sh, Rc, Rd = _pair_case(conf, device)
+        n = R.shape[0]
+        chunk = max(1, ions._MAX_PAIRS // (n * n))
+        Rg, hg = R.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        P, Q, _, _ = ions._IonPairSum.apply(Rg, hg, Z, sh, Rc, Rd, chunk,
+                                            True, True)
+        gR, gh = torch.autograd.grad(P, (Rg, hg))
+        P0, Q0 = ions._pair_energy_torch(R, h, Z, sh, Rc, Rd, chunk)
+        gR0, gh0 = ions._pair_grads_torch(R, h, Z, sh, Rc, Rd, chunk)
+        e_rel = abs(float(P.detach() - P0)) / abs(float(P0))
+        q_gap = float((Q - Q0).abs().max())
+        f_gap = 0.5 * float((gR - gR0).abs().max())
+        h_rel = float((gh - gh0).abs().max() / gh0.abs().max())
+        ms = cuda_time_ms(lambda: ions._pair_sum_cuda(
+            R, h, Z, sh, Rc, Rd, False), 3)
+        grad_ms = cuda_time_ms(lambda: ions._pair_sum_cuda(
+            R, h, Z, sh, Rc, Rd, True), 3)
+        plain_ms = cuda_time_ms(lambda: ions._pair_energy_torch(
+            R, h, Z, sh, Rc, Rd, chunk), 1)
+        plain_grad_ms = cuda_time_ms(lambda: ions._pair_grads_torch(
+            R, h, Z, sh, Rc, Rd, chunk), 1)
+        pairs = pairs_within(n, Rc, float(volume(h)))
+        bound_ms = 1e3 * pairs * ENERGY_FLOPS_PER_PAIR / PEAKS["fp64_flops"]
+        grad_bound_ms = 1e3 * pairs * FORCE_FLOPS_PER_PAIR \
+            / PEAKS["fp64_flops"]
+        log(f"[pairs] {tag}: {n} ions, {sh.shape[0]} images, {pairs:.4e} "
+            f"pairs within Rc {Rc:.4f} bohr; pair energy rel {e_rel:.3e} "
+            f"(bound 1e-12), Q max gap {q_gap} (exact), dE/dR max gap "
+            f"{f_gap:.3e} Ha/bohr (bound 1e-10), dE/dh rel {h_rel:.3e} "
+            f"(bound 1e-10); kernel {ms:.3f} ms, with gradients "
+            f"{grad_ms:.3f} ms (bounds {bound_ms:.3f}, {grad_bound_ms:.3f}); "
+            f"torch form {plain_ms:.1f} / {plain_grad_ms:.1f} ms")
+        if not (e_rel <= 1e-12 and q_gap == 0 and f_gap <= 1e-10
+                and h_rel <= 1e-10):
+            failed.append(tag)
+        out[tag] = dict(max_abs_err=f_gap, ms=ms, grad_ms=grad_ms,
+                        plain_ms=plain_ms, plain_grad_ms=plain_grad_ms,
+                        bound_ms=bound_ms, grad_bound_ms=grad_bound_ms)
+        del Rg, hg, P, Q, gR, gh, gR0, gh0
+    if failed:
+        raise AssertionError(f"[pairs] kernel and torch form disagree: "
+                             f"{failed}")
+    return out[configs[0][0]]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs the GPU",
               file=sys.stderr)
         return 1
+    from professad_tpu_torch.models import ions
     from professad_tpu_torch.ops import spectral_conv as sc
     from professad_tpu_torch.ops import vpufft as vf
 
@@ -1845,8 +1952,14 @@ def main():
     kern = phase_kernel(device)
     stock = phase_stockham(device)
     bfly_launches = phase_bfly(device)
+    ions.pair_launches = 0
     s32, res = phase_slice(device, 128, sync)
     phase_derivatives(s32)
+    pair_launches = ions.pair_launches
+    log(f"[slice] ion-ion pair kernel launches {pair_launches} (set-up, "
+        "optimisation, forces, stress)")
+    if pair_launches == 0:
+        raise AssertionError("the main path never launched the pair kernel")
     del s32
     phase_f64(device, 128, res["E"], sync)
     phase_golden(device)
@@ -1859,6 +1972,7 @@ def main():
     eos_launches, batched = phase_eos(device, sync)
     mesh_launches = phase_mesh(device, sync, res)
     examples_launches = phase_examples(device, card)
+    pairs = phase_pairs(device)
 
     abs_err, _, ms, pms, lms, graph = kern[(128, 128, 128), torch.float32]
     n = 128
@@ -1896,6 +2010,12 @@ def main():
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
             "lib_ms": st["library_ms"], "graph_ms": st["graph_ms"],
             "library_graph_ms": st["library_graph_ms"]})
+    kernels.append({
+        "name": "ion_pair_sum", "route": "cuda",
+        "source": "professad_tpu_torch/csrc/ion_pairs.cu",
+        "replaces": "professad_tpu/models/ions.py ion_interaction_sum "
+                    "(XLA; no Pallas kernel)",
+        "launches": pair_launches, "bound_by": "operations", **pairs})
     log(f"[total] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

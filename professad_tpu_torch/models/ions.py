@@ -10,15 +10,25 @@ The JAX package's matrix-unit spread (``_spread_mxu``) is TPU-specific:
 every ``method`` runs the scatter here.  Under ``ops.grid.pencil_mode``
 ``lattice_sum`` and both structure factors work on this rank's slab and
 k-pencil (``_spread_scatter_slab``: no halo exchange).
+
+The ion-ion pair sum of ``ion_interaction_sum`` is an autograd Function
+that holds no graph across image chunks; for CUDA tensors it is the
+kernel ``csrc/ion_pairs.cu`` (no TPU counterpart: the JAX package leaves
+the sum to XLA), built by ``ops/cuda_build.py`` at first use.
 """
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..ops import grid as _grid
+from ..ops.cuda_build import build
 from ..ops.grid import wavevecs, volume, safe_sqrt, inv3x3, rfftn, expi
 from ..ops.interp import interpolate
 from ..utils.constants import RECPOT_BOHR, RECPOT_POT_CONV
+from ..utils.profiling import annotate
 
 __all__ = ["read_recpot", "get_ion_charge", "interpolate_recpot",
            "structure_factor",
@@ -27,6 +37,12 @@ __all__ = ["read_recpot", "get_ion_charge", "interpolate_recpot",
            "ion_interaction_sum"]
 
 _MAX_PAIRS = 1 << 22  # pair terms per chunk of the ion-ion image sum
+_PAIR_BLOCKS = 4096   # blocks the pair kernel aims for: shifts a block
+
+pair_launches = 0
+"""Calls of the ion-ion pair kernel (``csrc/ion_pairs.cu``) in this process."""
+pair_terms = 0
+"""Candidate pair terms (ions^2 x images) the pair kernel examined."""
 
 
 def read_recpot(path):
@@ -237,6 +253,183 @@ def neighbor_shifts(box_vecs, Rc):
     return shifts[keep]
 
 
+def _pair_geometry(coords, box_vecs, s_chunk, Rc):
+    """Displacements d[b, i, j] = R_j + s_b h - R_i of one image chunk, the
+    pair mask (0 < r < Rc) and r where valid (1 elsewhere)."""
+    disp = (coords[None, None, :, :]
+            + (s_chunk @ box_vecs)[:, None, None, :]
+            - coords[None, :, None, :])
+    r = safe_sqrt(torch.sum(disp * disp, dim=-1))
+    valid = (r < Rc) & (r > 1e-12)
+    return disp, torch.where(valid, r, 1.0), valid
+
+
+def _pair_energy_torch(coords, box_vecs, charges, shifts_t, Rc, Rd, chunk):
+    """(sum of the pair terms Z_i Z_j erfc(r / Rd) / r over (i, j, b), the
+    neighbour charges Q_i), image chunk by image chunk."""
+    zz = charges[:, None] * charges[None, :]
+    E = torch.zeros((), dtype=coords.dtype, device=coords.device)
+    Q = torch.zeros(coords.shape[0], dtype=coords.dtype, device=coords.device)
+    for s in range(0, shifts_t.shape[0], chunk):
+        _, r, valid = _pair_geometry(coords, box_vecs, shifts_t[s:s + chunk],
+                                     Rc)
+        E = E + torch.sum(torch.where(
+            valid, zz * torch.special.erfc(r / Rd) / r, 0.0))
+        Q = Q + torch.sum(torch.where(valid, charges[None, None, :], 0.0),
+                          dim=(0, 2))
+    return E, Q
+
+
+def _pair_grads_torch(coords, box_vecs, charges, shifts_t, Rc, Rd, chunk):
+    """(dP/dR, dP/dh) of the pair-term sum P = sum_(i, j, b) e(|d_bij|),
+    e(r) = Z_i Z_j erfc(r / Rd) / r, from e'(r) / r d chunk by chunk; any
+    image table.  Differentiable where grad mode is on (a second
+    derivative), holding each chunk's graph then."""
+    zz = charges[:, None] * charges[None, :]
+    c_exp = 2.0 / (float(np.sqrt(np.pi)) * Rd)
+    gR = torch.zeros_like(coords)
+    gh = torch.zeros_like(box_vecs)
+    for s in range(0, shifts_t.shape[0], chunk):
+        s_chunk = shifts_t[s:s + chunk]
+        disp, r, valid = _pair_geometry(coords, box_vecs, s_chunk, Rc)
+        x = r / Rd
+        f = torch.where(valid, -zz * (c_exp * torch.exp(-x * x)
+                                      + torch.special.erfc(x) / r) / (r * r),
+                        0.0)
+        G = f[..., None] * disp                     # dP/dd, (b, i, j, 3)
+        gR = gR + torch.sum(G, dim=(0, 1)) - torch.sum(G, dim=(0, 2))
+        gh = gh + s_chunk.T @ torch.sum(G, dim=(1, 2))
+    return gR, gh
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_library():
+    """Compile ``csrc/ion_pairs.cu`` (once per source content) and load
+    it."""
+    lib = build("ion_pairs.cu")
+    lib.ion_pair_sum.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int, ctypes.c_void_p]
+    lib.ion_pair_sum.restype = ctypes.c_int
+    lib.ion_pair_threads.restype = ctypes.c_int
+    return lib
+
+
+def _pair_launch(pos, z, tvec, Rc, Rd, grad):
+    """One launch of the pair kernel on float64 CUDA tensors: its partial
+    sums (e, q, g, w), laid out as ``csrc/ion_pairs.cu`` says (g and w
+    only with ``grad``)."""
+    lib = _pair_library()
+    n, S = pos.shape[0], tvec.shape[0]
+    nx = -(-n // lib.ion_pair_threads())
+    sb = max(1, -(-nx * S // _PAIR_BLOCKS))     # shifts a block
+    ny = -(-S // sb)
+    e = torch.empty((ny, n), dtype=pos.dtype, device=pos.device)
+    q = torch.empty_like(e)
+    g = torch.empty((ny, n, 3), dtype=pos.dtype, device=pos.device) \
+        if grad else None
+    w = torch.empty((nx, S, 3), dtype=pos.dtype, device=pos.device) \
+        if grad else None
+    with torch.cuda.device(pos.device):
+        err = lib.ion_pair_sum(
+            pos.data_ptr(), z.data_ptr(), tvec.data_ptr(), n, S, sb,
+            float(Rc), float(Rc) ** 2 * (1.0 + 1e-12), 1.0 / float(Rd),
+            2.0 / (float(np.sqrt(np.pi)) * float(Rd)), e.data_ptr(),
+            q.data_ptr(), g.data_ptr() if grad else None,
+            w.data_ptr() if grad else None, int(grad),
+            torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ion_pair_sum: CUDA launch failed (error {err})")
+    return e, q, g, w
+
+
+def _pair_sum_cuda(coords, box_vecs, charges, shifts_t, Rc, Rd, grad,
+                   symmetric=None):
+    """The pair kernel's (pair-term sum P, Q) and, with ``grad``, (dP/dR,
+    dP/dh), in the dtypes of the inputs.  The gradient of an ion is met
+    at both ends of its pairs: the launch sums the i ends; where the table
+    is ``symmetric`` (-s beside every s, as ``neighbor_shifts`` gives) the
+    j ends sum to the same, otherwise a second launch over the negated
+    table gives them.  ``None`` reads the table back from the device to
+    find out (a synchronisation)."""
+    global pair_launches, pair_terms
+    f64 = torch.float64
+    shifts64 = shifts_t.to(f64)
+    tvec = (shifts64 @ box_vecs.detach().to(f64)).contiguous()
+    n, S = coords.shape[0], tvec.shape[0]
+    pos = coords.detach().to(f64).contiguous()
+    z = charges.detach().to(f64).contiguous()
+    with annotate("ions.pair_sum"):
+        e, q, g, w = _pair_launch(pos, z, tvec, Rc, Rd, grad)
+        if grad and symmetric is None:
+            symmetric = _symmetric(shifts64.cpu().numpy())
+        g_far = g if not grad or symmetric else \
+            _pair_launch(pos, z, -tvec, Rc, Rd, True)[2]
+    launches = 1 if g_far is g else 2
+    pair_launches += launches
+    pair_terms += launches * n * n * S
+    dt = coords.dtype
+    P, Q = torch.sum(e).to(dt), torch.sum(q, dim=0).to(dt)
+    if not grad:
+        return P, Q, None, None
+    gR = -torch.sum(g, dim=0) - torch.sum(g_far, dim=0)
+    gh = shifts64.T @ torch.sum(w, dim=0)
+    return P, Q, gR.to(dt), gh.to(box_vecs.dtype)
+
+
+def _symmetric(shifts):
+    """Whether the image table holds -s beside every s."""
+    a = np.asarray(shifts, dtype=np.float64)
+    return np.array_equal(a[np.lexsort(a.T[::-1])],
+                          (-a)[np.lexsort((-a).T[::-1])])
+
+
+class _IonPairSum(torch.autograd.Function):
+    """(sum over pairs of Z_i Z_j erfc(r / Rd) / r, Q_i) with a backward
+    that holds no graph across image chunks.  With ``kernel`` (CUDA
+    tensors) the kernel computes the sum, and with ``with_grad`` the
+    gradients too, in the forward (the backward scales them); otherwise
+    the torch form sums chunk by chunk and the backward recomputes chunk
+    by chunk.  Under ``create_graph`` the backward is the torch form with
+    its graph, so second derivatives go through.  ``symmetric`` tells the
+    kernel's wrapper whether the table holds -s beside every s (``None``:
+    it reads the table back to see).  Q is piecewise constant: it has no
+    gradient."""
+
+    @staticmethod
+    def forward(coords, box_vecs, charges, shifts_t, Rc, Rd, chunk, kernel,
+                with_grad, symmetric=None):
+        if kernel:
+            return _pair_sum_cuda(coords, box_vecs, charges, shifts_t, Rc,
+                                  Rd, with_grad, symmetric)
+        with annotate("ions.pair_sum"):
+            P, Q = _pair_energy_torch(coords, box_vecs, charges, shifts_t,
+                                      Rc, Rd, chunk)
+        return P, Q, None, None
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coords, box_vecs, charges, shifts_t, Rc, Rd, chunk = inputs[:7]
+        ctx.save_for_backward(coords, box_vecs, charges, shifts_t)
+        ctx.args = (Rc, Rd, chunk)
+        ctx.grads = output[2:] if output[2] is not None else None
+        ctx.mark_non_differentiable(*(t for t in output[1:]
+                                      if t is not None))
+
+    @staticmethod
+    def backward(ctx, gE, *_):
+        coords, box_vecs, charges, shifts_t = ctx.saved_tensors
+        if ctx.grads is not None and not torch.is_grad_enabled():
+            gR, gh = ctx.grads
+        else:
+            with annotate("ions.pair_sum"):
+                gR, gh = _pair_grads_torch(coords, box_vecs, charges,
+                                           shifts_t, *ctx.args)
+        need = ctx.needs_input_grad
+        return (gE * gR if need[0] else None, gE * gh if need[1] else None,
+                None, None, None, None, None, None, None, None)
+
+
 def ion_interaction_sum(box_vecs, coords, charges, Rc, Rd, shifts=None,
                         chunk=None):
     """Real-space damped pairwise electrostatic sum in a neutralising
@@ -246,36 +439,28 @@ def ion_interaction_sum(box_vecs, coords, charges, Rc, Rd, shifts=None,
         + per-ion adaptive-radius correction terms.
 
     ``shifts`` (lattice-unit image table) defaults to
-    :func:`neighbor_shifts` of the concrete cell.  The images are summed
-    ``chunk`` at a time (bounded memory); ``None`` picks the most that keep
-    a chunk within ``_MAX_PAIRS`` pair terms.  Differentiable with respect
-    to ``coords`` and ``box_vecs``."""
+    :func:`neighbor_shifts` of the concrete cell.  For CUDA tensors the
+    pair sum is the kernel of ``csrc/ion_pairs.cu`` (one launch, or two
+    for the gradients of a table without -s beside some s); for CPU
+    tensors the images are summed ``chunk`` at a time (bounded memory);
+    ``None`` picks the most that keep a chunk within ``_MAX_PAIRS`` pair
+    terms.  Either way no graph is kept across chunks.  Differentiable with respect to
+    ``coords`` and ``box_vecs``, twice."""
     if shifts is None:
         shifts = neighbor_shifts(box_vecs.detach().cpu().numpy(), Rc)
     n_ions = coords.shape[0]
     dtype, device = coords.dtype, coords.device
-    shifts_t = torch.as_tensor(np.asarray(shifts), dtype=dtype, device=device)
+    shifts = np.asarray(shifts)
+    shifts_t = torch.as_tensor(shifts, dtype=dtype, device=device)
     if chunk is None:
         chunk = max(1, _MAX_PAIRS // (n_ions * n_ions))
-    zz = charges[:, None] * charges[None, :]
-
-    E_local = torch.zeros((), dtype=dtype, device=device)
-    Qi = torch.zeros(n_ions, dtype=dtype, device=device)
-    for s in range(0, shifts_t.shape[0], chunk):
-        s_chunk = shifts_t[s:s + chunk]
-        # r_vec[b, i, j] = R_j + s_b . h - R_i
-        disp = (coords[None, None, :, :]
-                + (s_chunk @ box_vecs)[:, None, None, :]
-                - coords[None, :, None, :])
-        r = safe_sqrt(torch.sum(disp * disp, dim=-1))
-        valid = (r < Rc) & (r > 1e-12)
-        r_safe = torch.where(valid, r, 1.0)
-        pair_E = torch.where(valid, zz * torch.special.erfc(r_safe / Rd)
-                             / r_safe, 0.0)
-        E_local = E_local + 0.5 * torch.sum(pair_E)
-        # neighbour-charge accumulation: Q_i += sum_{j, b} Z_j [valid]
-        Qi = Qi + torch.sum(torch.where(valid, charges[None, None, :], 0.0),
-                            dim=(0, 2))
+    kernel = device.type == "cuda"
+    with_grad = torch.is_grad_enabled() and (coords.requires_grad
+                                             or box_vecs.requires_grad)
+    pair_sum, Qi, _, _ = _IonPairSum.apply(
+        coords, box_vecs, charges, shifts_t, Rc, Rd, chunk, kernel,
+        with_grad, _symmetric(shifts) if kernel and with_grad else None)
+    E_local = 0.5 * pair_sum
 
     rho = torch.sum(charges) / volume(box_vecs)
     aux = (0.75 / np.pi) * Qi / rho
