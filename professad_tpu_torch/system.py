@@ -48,11 +48,15 @@ getters of derivatives work in float64 from the stored state.
 """
 
 import functools
+import itertools
 import pickle
+import sys
+import types
 import warnings
 
 import numpy as np
 import torch
+from torch import nn
 
 from .ops.grid import (wavevecs, volume, safe_sqrt, inv3x3, rfftn, wmean,
                        spectral_convolution, spectral_resample)
@@ -70,6 +74,10 @@ from .utils.device import resolve_device
 __all__ = ["System"]
 
 _F64 = torch.float64
+_MODELS = __package__ + ".models."
+
+precond_kernel_builds = 0   # preconditioner kernels M(k) built for a cell
+precond_kernel_hits = 0     # M(k) taken from the System's cache entry
 
 
 class System:
@@ -97,6 +105,7 @@ class System:
         self._Eion_cache = None
         self._shifts = None
         self._shifts_key = None
+        self._precond_entry = None
         self._mesh = None
 
         self.set_lattice(box_vecs, units, initialization=True)
@@ -286,10 +295,11 @@ class System:
         means ``cuda:0``): the cell, ion coordinates and charges, density,
         external potential, stored energy, the recpot tables, and each
         term's parameters and prepared ladder, kernel tables and slabs.
-        The System builds its preconditioner kernel anew for each run, so
-        no kernel is cached.  Later runs allocate on ``device`` only."""
+        The cached preconditioner kernel is dropped (the next run builds
+        it on ``device``).  Later runs allocate on ``device`` only."""
         dev = resolve_device(device)
         self._device = dev
+        self._precond_entry = None
         self._box_vecs = self._box_vecs.to(dev)
         self._frac_ion_coords = self._frac_ion_coords.to(dev)
         self._charges = self._charges.to(dev)
@@ -642,25 +652,88 @@ class System:
         floor = 1e-8 * torch.max(F)
         return (1.0 / torch.maximum(F, floor)).detach()
 
-    def _precond_kernel(self, box_vecs, N_elec, aux=None):
-        """Exact preconditioner kernel M(k): the full-grid HVP up to
-        256^3, the radially sampled surrogate above (ray of
-        max(4096, 16 max(shape)) points), unless a term has ``prepare``
-        (its slabs belong to this grid's ladder), as in the JAX
-        package."""
+    def _radial_n1d(self):
+        """The ray of ``_precond_kernel``'s radially sampled kernel
+        (max(4096, 16 max(shape)) points) above 256^3, unless a term has
+        ``prepare`` (its slabs belong to this grid's ladder), as in the
+        JAX package; None for the full-grid HVP."""
         if int(np.prod(self._shape)) > 256 ** 3 and not self._prepare_terms():
-            n1d = max(4096, 16 * max(self._shape))
+            return max(4096, 16 * max(self._shape))
+        return None
+
+    def _precond_kernel(self, box_vecs, N_elec, aux=None):
+        """Exact preconditioner kernel M(k) of ``box_vecs``: the full-grid
+        HVP, or the radially sampled surrogate where ``_radial_n1d``
+        gives a ray."""
+        n1d = self._radial_n1d()
+        if n1d is not None:
             return self._exact_precond_kernel_radial(box_vecs, N_elec,
                                                      n1d=n1d)
         return self._exact_precond_kernel(box_vecs, N_elec, aux)
 
-    def _exact_precond(self, box_vecs, N_elec, aux=None):
-        """The exact uniform-density preconditioner q -> M * q applied by
-        the spectral convolution (the CG preconditioner of the second
-        derivatives: the full-grid kernel whatever the grid, as in the
-        JAX package)."""
+    def _cell_precond_kernel(self, dtype, full_grid=False, aux=None):
+        """M(k) of the System's own cell in ``dtype``: ``_precond_kernel``'s
+        route, or the full-grid HVP whatever the grid (``full_grid``).
+
+        M depends only on the cell, N_elec, the grid, the dtype and the
+        terms, so the last one built is kept (one entry) under
+        ``_precond_key`` and returned while the key holds: the very tensor
+        a rebuild would return.  Its consumers only read it.  Where there
+        is no key, it is built on every call."""
+        global precond_kernel_builds, precond_kernel_hits
+        n1d = None if full_grid else self._radial_n1d()
+        pins = []
+        key = self._precond_key(dtype, n1d, pins)
+        entry = self._precond_entry
+        if key is not None and entry is not None and entry[0] == key:
+            precond_kernel_hits += 1
+            return entry[2]
+        box, N_elec = self._box_vecs.to(dtype), float(self._N_elec)
+        if n1d is None:
+            M = self._exact_precond_kernel(box, N_elec, aux)
+        else:
+            M = self._exact_precond_kernel_radial(box, N_elec, n1d=n1d)
+        precond_kernel_builds += 1
+        self._precond_entry = None if key is None else (key, pins, M)
+        return M
+
+    def _precond_key(self, dtype, n1d, pins):
+        """What ``_cell_precond_kernel`` builds M from, read on the host:
+        the route, dtype, grid, N_elec, and the identity, version and
+        storage of the cell and of every parameter and buffer of an
+        ``nn.Module`` term (the tensors are appended to ``pins``, which
+        the entry keeps, so that no id or address is reused while it
+        lives).  None where the state is not visible: a term with
+        ``prepare`` (M then depends on the ladder prepared from the
+        density), a term that is neither a term function of ``models``
+        nor an ``nn.Module``'s, or a cell that requires grad or is a
+        transformed tensor (vmap / jvp)."""
+        box = self._box_vecs
+        if (self._prepare_terms() or box.requires_grad
+                or torch._C._functorch.is_functorch_wrapped_tensor(box)):
+            return None
+        key = [n1d, dtype, self._shape, float(self._N_elec),
+               _tensor_token(box, pins)]
+        for f in self._terms:
+            owner = getattr(f, "__self__", f)
+            if isinstance(owner, nn.Module):
+                key.append(tuple(
+                    _tensor_token(t, pins)
+                    for t in itertools.chain(owner.parameters(),
+                                             owner.buffers())))
+            elif not _is_model_function(f):
+                return None
+            pins.append(f)
+            key.append(id(f))
+        return tuple(key)
+
+    def _exact_precond(self):
+        """The exact uniform-density preconditioner q -> M * q of the
+        System's cell, f64, applied by the spectral convolution (the CG
+        preconditioner of the second derivatives: the full-grid kernel
+        whatever the grid, as in the JAX package)."""
         return self._apply_spectral(
-            self._exact_precond_kernel(box_vecs, N_elec, aux))
+            self._cell_precond_kernel(_F64, full_grid=True))
 
     def _apply_spectral(self, M):
         shape = self._shape
@@ -771,7 +844,8 @@ class System:
         blocks of ``block`` iterations, or preconditioned BB2 TPGD with
         stagnation damping, checked after ``skip_iters`` outer steps;
         ``analytic=True`` takes the fused analytic chi gradient, and
-        ``precondition=True`` the exact preconditioner built once.  In
+        ``precondition=True`` the exact preconditioner, built once per
+        cell (``_cell_precond_kernel``).  In
         float32 L-BFGS is not expected to converge (its curvature pairs
         turn into rounding noise near the minimum); TPGD is the f32 path.
 
@@ -839,7 +913,7 @@ class System:
         if mesh is not None:
             from .parallel.pfft import pencil_tpgd_minimize
             from .parallel.mesh import gather_grid
-            M = (self._precond_kernel(box, N_elec, aux)
+            M = (self._cell_precond_kernel(dt, aux=aux)
                  if precondition is not False else None)
             state, n_it, conv = pencil_tpgd_minimize(
                 mesh, self._shape, box, v_ext, N_elec, chi0, M,
@@ -852,7 +926,7 @@ class System:
             return self._store_optimized(state, n_it, conv, n_verbose)
         # the host loop's TPGD step and the potentials path take no
         # preconditioner
-        aH0 = (self._apply_spectral(self._precond_kernel(box, N_elec, aux))
+        aH0 = (self._apply_spectral(self._cell_precond_kernel(dt, aux=aux))
                if precondition and potentials is None
                and (jit_loop or n_method == "LBFGS") else None)
 
@@ -1191,7 +1265,7 @@ class System:
         from .parallel.mesh import grid_group
         from .parallel import pfft
         group, P, idx = grid_group(mesh)
-        M = self._exact_precond_kernel(self._box_vecs, self._N_elec)
+        M = self._cell_precond_kernel(_F64, full_grid=True)
         step = self._shape[1] // P
         M_slab = M.narrow(1, idx * step, step)
         shape = self._shape
@@ -1220,7 +1294,7 @@ class System:
     def _cg_precond(self):
         if self._mesh is not None:
             return self._mesh_precond(self._mesh)
-        return self._exact_precond(self._box_vecs, self._N_elec)
+        return self._exact_precond()
 
     def _hessian_args(self):
         """(chi, group) of the Hessian solves: the whole chi serially, this
@@ -1449,7 +1523,7 @@ class System:
                                               functional=functional,
                                               params=params)
 
-        pc = self._exact_precond(self._box_vecs, self._N_elec)
+        pc = self._exact_precond()
         with torch.no_grad():
             E_ion = (float(self._ion_ion_energy()) if self._has_ion_ion()
                      else 0.0)
@@ -1496,7 +1570,7 @@ class System:
                 E = E + self._ion_ion_interaction(h, frac @ h)
             return E
 
-        pc = self._exact_precond(self._box_vecs, self._N_elec)
+        pc = self._exact_precond()
 
         def fn(params):
             with torch.enable_grad():
@@ -2090,6 +2164,23 @@ def _check_mesh(mesh):
     if "grid" not in (getattr(mesh, "mesh_dim_names", None) or ()):
         raise ValueError('mesh must be a DeviceMesh with a "grid" axis '
                          '(parallel.make_mesh)')
+
+
+def _tensor_token(t, pins):
+    """A tensor's identity, version, storage address, dtype and device
+    (``nn.Module.to`` swaps a parameter's data without a new version);
+    the tensor and a view of its storage go to ``pins``."""
+    pins.append((t, t.detach()))
+    return (id(t), t._version, t.data_ptr(), t.dtype, t.device)
+
+
+def _is_model_function(f):
+    """Whether ``f`` is one of the port's term functions, a module-level
+    function of ``models`` (no state beyond its arguments)."""
+    return (isinstance(f, types.FunctionType)
+            and (f.__module__ or "").startswith(_MODELS)
+            and getattr(sys.modules.get(f.__module__), f.__name__, None)
+            is f)
 
 
 def _wrap(frac):

@@ -27,6 +27,7 @@ from professad_tpu_torch.ops import vpufft as vf
 POT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "potentials",
                    "al.gga.recpot")
 LI_POT = os.path.join(os.path.dirname(POT), "li.gga.recpot")
+MG_POT = os.path.join(os.path.dirname(POT), "mg.gga.recpot")
 
 
 @pytest.fixture
@@ -887,6 +888,68 @@ def test_optimize_density_graph_on_and_off(cuda, monkeypatch, dtype):
     assert held_off == held_on, (held_off, held_on)
     assert solvers.graph_replays == rep and n_off == n_on
     assert torch.equal(s.density(), den_on) and s.energy() == E_on
+
+
+def _mg_f64_system(device):
+    """hcp Mg (2 ions) at the benchmark's Mg f64 configuration: 23.151
+    A^3/atom, c/a 1.630, WT-exp + PBE with ion-ion and the exact structure
+    factor, float64, on ``ecut2shape``'s grid at 2000 eV."""
+    from professad_tpu_torch import System
+    from professad_tpu_torch.models import (IonIon, IonElectron, Hartree,
+                                            WangTeterStyleFunctional,
+                                            PerdewBurkeErnzerhof)
+    ca = 1.630
+    a = (2.0 * 23.151 / (np.sqrt(3.0) / 2.0 * ca)) ** (1.0 / 3.0)
+    box = np.array([[a, 0.0, 0.0], [-a / 2, a * np.sqrt(3.0) / 2, 0.0],
+                    [0.0, 0.0, ca * a]])
+    frac = np.array([[1 / 3, 2 / 3, 0.25], [2 / 3, 1 / 3, 0.75]])
+    wt = WangTeterStyleFunctional((5.0 / 6.0, 5.0 / 6.0, torch.exp))
+    return System(box, System.ecut2shape(2000.0, box), [["Mg", MG_POT, frac]],
+                  [IonIon, IonElectron, Hartree, wt.to(device).forward,
+                   PerdewBurkeErnzerhof], units="a", coord_type="fractional",
+                  device=device, dtype=torch.float64)
+
+
+@pytest.mark.cuda
+def test_precond_cache_gs_cold_solves(cuda):
+    """Three gs-cold solves (ions displaced 0.10 A, from uniform; the
+    benchmark's Mg f64 solver) on one System on the card: one build of
+    M(k) and two hits, M never written, every iteration after the first a
+    graph replay, and densities, energies and iteration counts bitwise
+    those of the same solves with M rebuilt before each."""
+    from professad_tpu_torch import system as tsys
+    from professad_tpu_torch.ops import solvers
+    kw = dict(ntol=2 * 2.5e-8, n_method="TPGD", analytic=True,
+              precondition=True, jit_loop=True, n_step_size=1.0,
+              skip_iters=2, n_conv_cond_count=3, from_uniform=True)
+    s = _mg_f64_system(cuda)
+    cart = (s.fractional_ionic_coordinates() @ s.lattice_vectors("a")).cpu()
+    rng = np.random.default_rng(15)
+    snaps = [cart.numpy() + 0.1 * rng.standard_normal(cart.shape)
+             for _ in range(3)]
+
+    def solves(clear):
+        out, c0 = [], (tsys.precond_kernel_builds, tsys.precond_kernel_hits)
+        for x in snaps:
+            s.place_ions(x, coord_type="cartesian", units="a")
+            if clear:
+                s._precond_entry = None
+            rep = solvers.graph_replays
+            n_it, conv = s.optimize_density(**kw)
+            assert conv and solvers.graph_replays - rep == n_it - 1 > 0
+            out.append((s.density().clone(), s.energy(), n_it))
+        torch.cuda.synchronize()
+        return out, (tsys.precond_kernel_builds - c0[0],
+                     tsys.precond_kernel_hits - c0[1])
+
+    cached, counts = solves(False)
+    assert counts == (1, 2)
+    M = s._precond_entry[2]
+    version = M._version
+    rebuilt, counts = solves(True)
+    assert counts == (3, 0) and M._version == version
+    for (d0, e0, n0), (d1, e1, n1) in zip(cached, rebuilt):
+        assert n0 == n1 and torch.equal(d0, d1) and e0 == e1
 
 
 @pytest.mark.cuda
