@@ -1259,7 +1259,7 @@ def phase_pme(device, n=128, order=20):
 
 def phase_radial(device, sync, E128, n=320):
     """The radial preconditioner kernel at 128^3 and n^3, on the ray of
-    ``_precond_kernel`` (n1d = max(4096, 16 max(shape)), the JAX package's
+    ``_cell_precond_kernel`` (n1d = max(4096, 16 max(shape)), the JAX package's
     rule), f64 on the card:
     - equal to the same function on the CPU within 1e-10 of its largest
       value (M spans ~7e4, so rounding in the small F at high |k| reaches

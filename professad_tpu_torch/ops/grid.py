@@ -16,7 +16,10 @@ transforms).  Conventions kept from the JAX package:
 * ``pencil_mode(group)`` redirects ``rfftn`` / ``irfftn`` / ``wavevecs`` /
   ``qmean`` / ``wmean`` / ``spectral_convolution`` to the pencil-decomposed
   forms of ``parallel.pfft`` on a ``torch.distributed`` group, so the
-  serial term bodies evaluate on axis-0 slabs of a distributed grid.
+  serial term bodies evaluate on axis-0 slabs of a distributed grid;
+  ``pencil_mode(None)`` leaves them serial.
+* ``_chi_map`` / ``_chi_chain`` are the one chi parameterisation of the
+  density solvers (its float32 floor included), serial and on the pencils.
 """
 
 import numpy as np
@@ -167,6 +170,37 @@ def safe_sqrt(x):
     """NaN-free-gradient sqrt: 0 where x <= 0 (double-where idiom)."""
     pos = x > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+# ------------------- the chi parameterisation of the solvers ----------------
+
+def _chi_map(chi, vol, N_elec):
+    """The density of the solvers' variable, n = N_e chi^2 / int chi^2:
+    (den_pre, den, s, N_tilde).  ``den_pre`` is the plain map; ``den``
+    floors it, in float32, at 1e-10 of the mean N_e / vol, renormalised by
+    ``s`` so that negative powers stay finite (float64: den is den_pre and
+    s is 1).  The mean is :func:`wmean`: under ``pencil_mode`` chi is this
+    rank's slab and the normalisation global."""
+    N_tilde = wmean(chi * chi) * vol
+    den_pre = (N_elec / N_tilde) * chi * chi
+    if chi.dtype != torch.float32:
+        return den_pre, den_pre, 1.0, N_tilde
+    c = 1e-10 * N_elec / vol
+    s = N_elec / (N_elec + c * vol)
+    return den_pre, (den_pre + c) * s, s, N_tilde
+
+
+def _chi_chain(chi, pot, den_pre, s, N_tilde, vol, N_elec):
+    """dE/dchi from pot = dE/dn at the density of :func:`_chi_map`:
+    s (N_e / N_tilde) 2 chi (pot - mu) w, with mu = mean(pot den_pre) vol /
+    N_e and w = vol / (points of the whole grid)."""
+    n = chi.numel()
+    if _PENCIL is not None:
+        from ..parallel.collectives import axis_size
+        n *= axis_size(_PENCIL)
+    quad_w = vol / n
+    mu = wmean(pot * den_pre) * vol / N_elec
+    return s * (N_elec / N_tilde) * 2.0 * chi * (pot - mu) * quad_w
 
 
 def _origin(t):

@@ -231,7 +231,7 @@ def implicit_ground_state(energy_fn, chi_opt, args=(), cg_tol=1e-12,
     ``energy_fn(chi, *args)`` is the energy of the unconstrained
     sqrt-density chi; ``args`` (tensors, or tuples, lists and dicts of
     them) are the parameters.  ``precond`` is an SPD approximate inverse
-    Hessian applied as the CG preconditioner (``System._exact_precond``).
+    Hessian applied as the CG preconditioner (``System._cg_precond``).
     ``check_tol``: the relative residual above which each solve warns
     (None: no check).  Returns chi_opt as a tensor whose backward supplies
     d chi*/d args by the implicit function theorem (reverse mode; second

@@ -25,7 +25,8 @@ same energy; autograd of it follows the rule of ``parallel/collectives.py``
 import numpy as np
 import torch
 
-from ..ops.grid import inv3x3, _freq_indices, _colsum_mean64, volume
+from ..ops.grid import (inv3x3, _freq_indices, _colsum_mean64, volume,
+                        pencil_mode, _chi_map, _chi_chain)
 from ..utils.naming import term_name
 from .collectives import (all_to_all, psum, rank_share, axis_index,
                           axis_size)
@@ -302,29 +303,22 @@ def pvalue_and_potential_wt_pbe(box_vecs, den_local, v_ext_local, shape,
     return E, pot + df_dn_x + df_dn_c - 2.0 * div
 
 
-def _chi_density(chi, box_vecs, N_elec, group):
-    """(den_pre, den, s, N_tilde, vol): the chi parameterisation with the
-    global normalisation and, in f32, the density floor."""
-    vol = volume(box_vecs)
-    N_tilde = pwmean(chi * chi, group) * vol
-    den_pre = (N_elec / N_tilde) * chi * chi
-    if chi.dtype == torch.float32:
-        c = 1e-10 * N_elec / vol
-        s = N_elec / (N_elec + c * vol)
-        return den_pre, (den_pre + c) * s, s, N_tilde, vol
-    return den_pre, den_pre, 1.0, N_tilde, vol
-
-
 def _local_shape(shape, group):
     return (shape[0] // axis_size(group), shape[1], shape[2])
 
 
-def _chain_chi(chi, pot, den_pre, s, N_tilde, vol, N_elec, shape, group):
-    """dE/dchi from dE/dn through the chi parameterisation (the serial
-    ``System._chi_value_and_grad_analytic`` chain)."""
-    quad_w = vol / float(np.prod(shape))
-    mu = pwmean(pot * den_pre, group) * vol / N_elec
-    return s * (N_elec / N_tilde) * 2.0 * chi * (pot - mu) * quad_w
+def _chi_value_and_grad(chi_local_flat, box_vecs, N_elec, shape, group,
+                        sweep):
+    """(global E, local flat dE/dchi) from ``sweep(den) -> (E, dE/dn
+    slab)`` through the chi map of ``ops.grid`` (``_chi_map`` /
+    ``_chi_chain``, the serial solvers' own), under ``pencil_mode``."""
+    chi = chi_local_flat.reshape(_local_shape(shape, group))
+    vol = volume(box_vecs)
+    with pencil_mode(group):
+        den_pre, den, s, N_tilde = _chi_map(chi, vol, N_elec)
+        E, pot = sweep(den)
+        g = _chi_chain(chi, pot, den_pre, s, N_tilde, vol, N_elec)
+    return E, g.reshape(-1)
 
 
 def pchi_value_and_grad(chi_local_flat, box_vecs, v_ext_local, N_elec,
@@ -332,13 +326,10 @@ def pchi_value_and_grad(chi_local_flat, box_vecs, v_ext_local, N_elec,
     """Distributed (E, dE/dchi) of the hand-fused WT + PBE sweep:
     ``chi_local_flat`` is this rank's block of the flat chi (its slab);
     returns (global E, local flat gradient)."""
-    chi = chi_local_flat.reshape(_local_shape(shape, group))
-    den_pre, den, s, N_tilde, vol = _chi_density(chi, box_vecs, N_elec,
-                                                 group)
-    E, pot = pvalue_and_potential_wt_pbe(box_vecs, den, v_ext_local, shape,
-                                         group)
-    g = _chain_chi(chi, pot, den_pre, s, N_tilde, vol, N_elec, shape, group)
-    return E, g.reshape(-1)
+    return _chi_value_and_grad(
+        chi_local_flat, box_vecs, N_elec, shape, group,
+        lambda den: pvalue_and_potential_wt_pbe(box_vecs, den, v_ext_local,
+                                                shape, group))
 
 
 def pchi_value_and_grad_analytic(terms, chi_local_flat, box_vecs,
@@ -348,16 +339,11 @@ def pchi_value_and_grad_analytic(terms, chi_local_flat, box_vecs,
     (``models.potentials.value_and_potential`` under
     ``ops.grid.pencil_mode``) for any term set it accepts; ``aux`` is the
     term-aux list on this rank's k-pencil (:func:`aux_pencil_specs`)."""
-    from ..ops.grid import pencil_mode
     from ..models.potentials import value_and_potential
-    chi = chi_local_flat.reshape(_local_shape(shape, group))
-    den_pre, den, s, N_tilde, vol = _chi_density(chi, box_vecs, N_elec,
-                                                 group)
-    with pencil_mode(group):
-        E, pot = value_and_potential(terms, box_vecs, den, v_ext_local,
-                                     N_elec=N_elec, aux=aux)
-    g = _chain_chi(chi, pot, den_pre, s, N_tilde, vol, N_elec, shape, group)
-    return E, g.reshape(-1)
+    return _chi_value_and_grad(
+        chi_local_flat, box_vecs, N_elec, shape, group,
+        lambda den: value_and_potential(terms, box_vecs, den, v_ext_local,
+                                        N_elec=N_elec, aux=aux))
 
 
 def penergy_terms(terms, box_vecs, den_local, v_ext_local, group, aux=None):
@@ -367,7 +353,6 @@ def penergy_terms(terms, box_vecs, den_local, v_ext_local, group, aux=None):
     excluded, IonElectron on the local v_ext slab, ladder terms on the
     ladder their ``prepare`` cached, and ``aux`` (the term-aux list on this
     rank's k-pencil) where given.  An unprepared ladder term raises."""
-    from ..ops.grid import pencil_mode
     E = torch.zeros((), dtype=den_local.dtype, device=den_local.device)
     with pencil_mode(group):
         for i, f in enumerate(terms):
@@ -415,8 +400,9 @@ def pchi_value_and_grad_terms(terms, chi_local_flat, box_vecs, v_ext_local,
     local_shape = _local_shape(shape, group)
     with torch.enable_grad():
         x = chi_local_flat.detach().requires_grad_(True)
-        chi = x.reshape(local_shape)
-        _, den, _, _, _ = _chi_density(chi, box_vecs, N_elec, group)
+        with pencil_mode(group):
+            den = _chi_map(x.reshape(local_shape), volume(box_vecs),
+                           N_elec)[1]
         E = penergy_terms(terms, box_vecs, den, v_ext_local, group, aux=aux)
         (g,) = torch.autograd.grad(rank_share(E, group), x)
     return E.detach(), g

@@ -59,7 +59,8 @@ import torch
 from torch import nn
 
 from .ops.grid import (wavevecs, volume, safe_sqrt, inv3x3, rfftn, wmean,
-                       spectral_convolution, spectral_resample)
+                       spectral_convolution, spectral_resample, pencil_mode,
+                       _chi_map, _chi_chain)
 from .ops.interp import interpolate
 from .ops import solvers
 from .ops import implicit
@@ -332,26 +333,27 @@ class System:
         self._mesh = mesh
 
     # -- the mesh's slabs ------------------------------------------------
+    # ``group``: the "grid" process group of the mesh (``_grid_group``), or
+    # None serially, where the slab is the whole field.
 
-    def _pencil_local_shape(self, mesh):
-        from .parallel.mesh import grid_group
-        _, n_dev, _ = grid_group(mesh)
+    def _pencil_local_shape(self, group):
+        if group is None:
+            return self._shape
+        from .parallel.collectives import axis_size
+        n_dev = axis_size(group)
         if self._shape[0] % n_dev or self._shape[1] % n_dev:
             raise ValueError(
                 f"pencil decomposition needs grid axes 0 and 1 divisible "
                 f"by the mesh 'grid' size {n_dev}; got {self._shape}")
         return (self._shape[0] // n_dev, self._shape[1], self._shape[2])
 
-    def _slab(self, x, mesh):
+    def _slab(self, x, group):
         """This rank's axis-0 slab of a whole field."""
-        from .parallel.mesh import grid_sharding
-        return grid_sharding(mesh)(x)
-
-    def _den_sharded(self, mesh):
-        return self._slab(self._den, mesh)
-
-    def _chi_sharded(self, mesh):
-        return self._slab(self._gs_chi(), mesh)
+        if group is None:
+            return x
+        from .parallel.collectives import axis_index
+        n0 = self._pencil_local_shape(group)[0]
+        return x.narrow(0, axis_index(group) * n0, n0)
 
     # ------------------------------------------------------------------
     # getters
@@ -493,15 +495,9 @@ class System:
 
     def _chi_energy(self, chi, box_vecs, v_ext, N_elec, aux=None):
         """Energy as a function of the unconstrained sqrt-density variable,
-        n = N_e chi^2 / (int chi^2).  f32 floors the density at 1e-10 of
-        the mean (renormalised), so negative powers stay finite."""
-        chi = chi.reshape(self._shape)
-        vol = volume(box_vecs)
-        N_tilde = wmean(chi * chi) * vol
-        den = (N_elec / N_tilde) * chi * chi
-        if chi.dtype == torch.float32:
-            c = 1e-10 * N_elec / vol
-            den = (den + c) * (N_elec / (N_elec + c * vol))
+        n = N_e chi^2 / (int chi^2), with the float32 floor of
+        ``grid._chi_map``."""
+        den = _chi_map(chi.reshape(self._shape), volume(box_vecs), N_elec)[1]
         return self._density_terms_energy(box_vecs, den, v_ext, aux=aux)
 
     def _chi_value_and_grad(self, chi, box_vecs, v_ext, N_elec, aux=None):
@@ -521,13 +517,11 @@ class System:
         parameterisation as in the JAX package."""
         x = chi.reshape(self._shape)
         vol = volume(box_vecs)
-        N_tilde = wmean(x * x) * vol
-        den = (N_elec / N_tilde) * x * x
+        den, _, _, N_tilde = _chi_map(x, vol, N_elec)
         E = self._density_terms_energy(box_vecs, den, v_ext)
         dEdn = potentials(box_vecs, den)
-        mu = wmean(dEdn * den) * vol / N_elec
-        dEdchi = (N_elec / N_tilde) * 2.0 * x * (dEdn - mu)
-        return E, (dEdchi * (vol / den.numel())).reshape(chi.shape)
+        return E, _chi_chain(x, dEdn, den, 1.0, N_tilde, vol,
+                             N_elec).reshape(chi.shape)
 
     def _dEdn(self, box_vecs, den, v_ext, aux=None):
         """delta E / delta n of the density terms (per unit volume)."""
@@ -545,26 +539,12 @@ class System:
         if sweep is None:
             from .models.potentials import bind_sweep
             sweep = bind_sweep(self._terms, aux)
-        shape_in = chi.shape
-        chi = chi.reshape(self._shape)
+        x = chi.reshape(self._shape)
         vol = volume(box_vecs)
-        N_tilde = wmean(chi * chi) * vol
-        den_pre = (N_elec / N_tilde) * chi * chi
-        if chi.dtype == torch.float32:
-            c = 1e-10 * N_elec / vol
-            s = N_elec / (N_elec + c * vol)
-            den = (den_pre + c) * s
-        else:
-            s = 1.0
-            den = den_pre
+        den_pre, den, s, N_tilde = _chi_map(x, vol, N_elec)
         E, pot = sweep(box_vecs, den, v_ext, N_elec=N_elec)
-        quad_w = vol / den.numel()
-        # chain through the chi-parameterisation (+ f32 floor scale s):
-        # dE/dchi_j = s (N/N~) 2 chi_j w (pot_j - mu),
-        # mu = mean(pot * den_pre) vol / N
-        mu = wmean(pot * den_pre) * vol / N_elec
-        dEdchi = s * (N_elec / N_tilde) * 2.0 * chi * (pot - mu) * quad_w
-        return E, dEdchi.reshape(shape_in)
+        return E, _chi_chain(x, pot, den_pre, s, N_tilde, vol,
+                             N_elec).reshape(chi.shape)
 
     def _exact_precond_kernel(self, box_vecs, N_elec, aux=None):
         """The exact uniform-density inverse-Hessian diagonal M(k) on the
@@ -653,27 +633,18 @@ class System:
         return (1.0 / torch.maximum(F, floor)).detach()
 
     def _radial_n1d(self):
-        """The ray of ``_precond_kernel``'s radially sampled kernel
-        (max(4096, 16 max(shape)) points) above 256^3, unless a term has
-        ``prepare`` (its slabs belong to this grid's ladder), as in the
-        JAX package; None for the full-grid HVP."""
+        """The ray of the radially sampled kernel (max(4096, 16 max(shape))
+        points) above 256^3, unless a term has ``prepare`` (its slabs
+        belong to this grid's ladder), as in the JAX package; None for the
+        full-grid HVP."""
         if int(np.prod(self._shape)) > 256 ** 3 and not self._prepare_terms():
             return max(4096, 16 * max(self._shape))
         return None
 
-    def _precond_kernel(self, box_vecs, N_elec, aux=None):
-        """Exact preconditioner kernel M(k) of ``box_vecs``: the full-grid
-        HVP, or the radially sampled surrogate where ``_radial_n1d``
-        gives a ray."""
-        n1d = self._radial_n1d()
-        if n1d is not None:
-            return self._exact_precond_kernel_radial(box_vecs, N_elec,
-                                                     n1d=n1d)
-        return self._exact_precond_kernel(box_vecs, N_elec, aux)
-
     def _cell_precond_kernel(self, dtype, full_grid=False, aux=None):
-        """M(k) of the System's own cell in ``dtype``: ``_precond_kernel``'s
-        route, or the full-grid HVP whatever the grid (``full_grid``).
+        """M(k) of the System's own cell in ``dtype``: the full-grid HVP,
+        or the radially sampled surrogate where ``_radial_n1d`` gives a
+        ray; the full-grid HVP whatever the grid with ``full_grid``.
 
         M depends only on the cell, N_elec, the grid, the dtype and the
         terms, so the last one built is kept (one entry) under
@@ -727,13 +698,23 @@ class System:
             key.append(id(f))
         return tuple(key)
 
-    def _exact_precond(self):
-        """The exact uniform-density preconditioner q -> M * q of the
-        System's cell, f64, applied by the spectral convolution (the CG
-        preconditioner of the second derivatives: the full-grid kernel
-        whatever the grid, as in the JAX package)."""
-        return self._apply_spectral(
-            self._cell_precond_kernel(_F64, full_grid=True))
+    def _cg_precond(self, group=None):
+        """The CG preconditioner of the second derivatives' Hessian solves:
+        q -> M * q with the exact uniform-density kernel of the System's
+        cell, f64 and full-grid whatever the grid, as in the JAX package.
+        Serially the spectral convolution applies it; with a ``group``,
+        q is this rank's slab and the pencil transforms apply this rank's
+        k-pencil of M."""
+        M = self._cell_precond_kernel(_F64, full_grid=True)
+        if group is None:
+            return self._apply_spectral(M)
+        from .parallel import pfft
+        from .parallel.collectives import axis_index, axis_size
+        shape = self._shape
+        step = shape[1] // axis_size(group)
+        M_slab = M.narrow(1, axis_index(group) * step, step)
+        return lambda q: pfft.pirfftn(M_slab * pfft.prfftn(q, group), shape,
+                                      group)
 
     def _apply_spectral(self, M):
         shape = self._shape
@@ -791,7 +772,7 @@ class System:
         hoists on the k-pencils where the terms have them, as the JAX
         package's mesh branch does."""
         if self._mesh is not None:
-            E = self._mesh_terms_energy(self._mesh)
+            E = self._mesh_terms_energy(_grid_group(self._mesh))
         else:
             E = self._density_terms_energy(self._box_vecs, self._den,
                                            self._v_ext, static=False)
@@ -799,23 +780,58 @@ class System:
             E = E + self._ion_ion_energy()
         return E
 
-    def _mesh_terms_energy(self, mesh):
+    def _mesh_terms_energy(self, group):
         """The density terms of the stored state on the mesh: this rank's
         slabs through ``pfft.penergy_terms``; the replicated sum."""
-        from .parallel.mesh import grid_group
         from .parallel import pfft
-        group, _, _ = grid_group(mesh)
-        self._pencil_local_shape(mesh)
         aux = pfft.aux_pencil_specs(self._collect_term_aux(), group)
         return pfft.penergy_terms(self._terms, self._box_vecs,
-                                  self._den_sharded(mesh),
-                                  self._slab(self._v_ext, mesh), group,
+                                  self._slab(self._den, group),
+                                  self._slab(self._v_ext, group), group,
                                   aux=aux)
 
     def _ion_ion_energy(self):
         """Ion-ion energy of the stored cell and ions (sets the cache)."""
         cart = self._frac_ion_coords @ self._box_vecs
         return self._ion_ion_interaction(self._box_vecs, cart)
+
+    def _geometry_energy(self, group=None, ion_ion=None, of_density=False):
+        """``energy(x, h, cart, params=None, functional=None)``: the energy
+        of the cell ``h`` with the ions at ``cart`` at the density of x,
+        differentiable with respect to each argument: the one energy to
+        which the stress, the second derivatives, the ground-state
+        properties and the relaxations map their parameters, serial and on
+        a mesh.
+
+        x is chi, whose density is ``grid._chi_map``'s plain map in the
+        cell h, or with ``of_density`` the density itself.  With a
+        ``group`` x is this rank's slab, the term bodies run under
+        ``pencil_mode`` and the value is the replicated global energy.
+        v_ext is rebuilt from (h, cart) on the slab where there is an
+        IonElectron term; otherwise, or where ``cart`` is None, it is the
+        stored one.  The ladder terms take their cached ladder and never
+        the hoisted aux slabs, which depend on the cell.  ``functional`` /
+        ``params`` as in ``_density_terms_energy``.  ``ion_ion(h, cart)``,
+        where the System has an IonIon term, adds the ion-ion energy."""
+        local = self._pencil_local_shape(group)
+        has_ie = self._needs_vext()
+        has_ii = ion_ion is not None and self._has_ion_ion()
+        N_elec = self._N_elec
+
+        def energy(x, h, cart, params=None, functional=None):
+            with pencil_mode(group):
+                v_ext = (self._potential_from_ions(h, cart, local)
+                         if has_ie and cart is not None
+                         else self._slab(self._v_ext, group))
+                den = x if of_density else _chi_map(x, volume(h), N_elec)[0]
+                E = self._density_terms_energy(h, den, v_ext,
+                                               functional=functional,
+                                               params=params)
+            if has_ii:
+                E = E + ion_ion(h, cart)
+            return E
+
+        return energy
 
     # ------------------------------------------------------------------
     # density optimization
@@ -921,8 +937,8 @@ class System:
                 max_iter=round(n_maxiter), skip_iters=skip_iters,
                 f_scale=EV_PER_HA, method=n_method, terms=self._terms,
                 aux=aux, analytic=analytic, block=1 if block == 6 else block)
-            state = state._replace(x=gather_grid(
-                state.x.reshape(self._pencil_local_shape(mesh)), mesh))
+            state = state._replace(x=gather_grid(state.x.reshape(
+                self._pencil_local_shape(_grid_group(mesh))), mesh))
             return self._store_optimized(state, n_it, conv, n_verbose)
         # the host loop's TPGD step and the potentials path take no
         # preconditioner
@@ -1058,18 +1074,16 @@ class System:
             return stop_fn
 
         def stop_fn(st, f_prev):
-            chi = st.x.reshape(self._shape)
             vol = volume(box_vecs)
-            den = (N_elec / (wmean(chi * chi) * vol)) * chi * chi
+            den = _chi_map(st.x.reshape(self._shape), vol, N_elec)[0]
             dEdn = self._dEdn(box_vecs, den, v_ext, aux)
             mu = wmean(dEdn * den) * vol / N_elec
             return torch.max(torch.abs(mu - dEdn))
         return stop_fn
 
     def _set_den_from_chi(self, chi):
-        chi = chi.reshape(self._shape)
-        N_tilde = wmean(chi * chi) * self.volume("b3")
-        self._den = ((self._N_elec / N_tilde) * chi * chi).to(_F64)
+        self._den = _chi_map(chi.reshape(self._shape), self.volume("b3"),
+                             self._N_elec)[0].to(_F64)
 
     # ------------------------------------------------------------------
     # convergence diagnostics
@@ -1123,49 +1137,27 @@ class System:
         raise ValueError("units must be 'Ha/b' or 'eV/a'")
 
     def _compute_forces(self):
-        if self._mesh is not None:
-            return self._compute_forces_mesh(self._mesh)
-        box = self._box_vecs
-        cart = (self._frac_ion_coords @ box).detach().requires_grad_(True)
-        U = torch.zeros((), dtype=_F64, device=self._device)
-        with torch.enable_grad():
-            if self._needs_vext():
-                U = U + IonElectron(box, self._den,
-                                    self._potential_from_ions(box, cart))
-            if self._has_ion_ion():
-                U = U + self._ion_ion_interaction(box, cart)
-            if not U.requires_grad:
-                return torch.zeros_like(cart)
-            (g,) = torch.autograd.grad(U, cart)
-        return -g
-
-    def _compute_forces_mesh(self, mesh):
-        """Distributed Hellmann-Feynman forces: the ion-electron energy with
-        v_ext rebuilt on each rank's slab (its structure factor on the
-        k-pencil) plus the grid-free ion-ion sum, differentiated with
-        respect to the coordinates every rank holds whole: each rank
-        differentiates its share, and the forces are the psum of the
-        parts, the same on every rank."""
-        from .ops.grid import pencil_mode
-        from .parallel.mesh import grid_group
-        from .parallel.collectives import psum, rank_share
-        group, _, _ = grid_group(mesh)
-        local = self._pencil_local_shape(mesh)
+        """The ion terms' energy alone (no density term depends on the
+        ions), differentiated with respect to the coordinates.  On a mesh,
+        IonElectron takes this rank's slab, with v_ext rebuilt there (its
+        structure factor on the k-pencil)."""
+        group = _grid_group(self._mesh)
         box = self._box_vecs
         cart = (self._frac_ion_coords @ box).detach().requires_grad_(True)
         U = torch.zeros((), dtype=_F64, device=self._device)
         with torch.enable_grad():
             if self._needs_vext():
                 with pencil_mode(group):
-                    U = U + IonElectron(box, self._den_sharded(mesh),
-                                        self._potential_from_ions(
-                                            box, cart, local))
+                    U = U + IonElectron(
+                        box, self._slab(self._den, group),
+                        self._potential_from_ions(
+                            box, cart, self._pencil_local_shape(group)))
             if self._has_ion_ion():
                 U = U + self._ion_ion_interaction(box, cart)
             if not U.requires_grad:
                 return torch.zeros_like(cart)
-            (g,) = torch.autograd.grad(rank_share(U, group), cart)
-        return -psum(g, group)
+            (g,) = _replicated_grad(U, cart, group)
+        return -g
 
     def stress(self, units="Ha/b3"):
         """sigma = sym((dE/dh)^T h) / vol, with the density rescaled by
@@ -1186,139 +1178,38 @@ class System:
         raise ValueError("units must be 'Ha/b3', 'eV/a3' or 'GPa'")
 
     def _compute_stress(self):
-        if self._mesh is not None:
-            return self._compute_stress_mesh(self._mesh)
+        group = _grid_group(self._mesh)
         box0 = self._box_vecs
         vol0 = self.volume("b3")
         frac = self._frac_ion_coords
-        h = box0.detach().clone().requires_grad_(True)
-        with torch.enable_grad():
-            den = self._den * vol0 / volume(h)
-            v_ext = (self._potential_from_ions(h, frac @ h)
-                     if self._needs_vext() else self._v_ext)
-            E = self._density_terms_energy(h, den, v_ext)
-            if self._has_ion_ion():
-                E = E + self._ion_ion_interaction(h, frac @ h)
-            (dEdh,) = torch.autograd.grad(E, h)
-        stress = dEdh.T @ box0 / vol0
-        return 0.5 * (stress + stress.T)
-
-    def _compute_stress_mesh(self, mesh):
-        """Distributed stress: the density-term energy (density rescaled by
-        vol0 / vol(h), v_ext rebuilt on the slabs through the pencil
-        wavevectors, the serial term bodies under ``pencil_mode``)
-        plus the grid-free ion-ion sum, differentiated with respect to the
-        cell every rank holds whole: the psum of the ranks' parts."""
-        from .parallel.mesh import grid_group
-        from .parallel.collectives import psum, rank_share
-        group, _, _ = grid_group(mesh)
-        box0 = self._box_vecs
-        vol0 = self.volume("b3")
-        frac = self._frac_ion_coords
-        energy = self._mesh_chi_energy_body(mesh, normalise=False)
+        den = self._slab(self._den, group)
+        energy = self._geometry_energy(group, self._ion_ion_interaction,
+                                       of_density=True)
         with torch.enable_grad():
             h = box0.detach().clone().requires_grad_(True)
-            den = self._den_sharded(mesh) * vol0 / volume(h)
-            E = energy(den, h, frac @ h)
-            if self._has_ion_ion():
-                E = E + self._ion_ion_interaction(h, frac @ h)
-            (dEdh,) = torch.autograd.grad(rank_share(E, group), h)
-        dEdh = psum(dEdh, group)
+            E = energy(den * vol0 / volume(h), h, frac @ h)
+            (dEdh,) = _replicated_grad(E, h, group)
         stress = dEdh.T @ box0 / vol0
         return 0.5 * (stress + stress.T)
-
-    def _mesh_chi_energy_body(self, mesh, normalise=True):
-        """``energy(chi_local, h, cart)``: the density-term energy on the
-        mesh (replicated value) from this rank's slab of chi, n = N chi^2 /
-        int chi^2 with the global normalisation (``normalise=False``: the
-        slab is the density itself), v_ext rebuilt on the slab from the
-        exact or PME structure factor on the k-pencil, the serial term
-        bodies under ``pencil_mode`` with their cached ladders.  The
-        hoisted term-aux slabs depend on the cell and are never passed
-        here; the grid-free ion-ion sum is the callers'."""
-        from .ops.grid import pencil_mode
-        from .parallel.mesh import grid_group
-        from .parallel import pfft
-        group, _, _ = grid_group(mesh)
-        local = self._pencil_local_shape(mesh)
-        has_ie = self._needs_vext()
-        N_elec = self._N_elec
-        v_slab = self._slab(self._v_ext, mesh)
-
-        def energy(chi, h, cart):
-            with pencil_mode(group):
-                v_ext = (self._potential_from_ions(h, cart, local) if has_ie
-                         else v_slab)
-                if normalise:
-                    N_tilde = wmean(chi * chi) * volume(h)
-                    den = (N_elec / N_tilde) * chi * chi
-                else:
-                    den = chi
-            return pfft.penergy_terms(self._terms, h, den, v_ext, group)
-
-        return energy
-
-    def _mesh_precond(self, mesh):
-        """The CG preconditioner of the Hessian solves on the mesh: the
-        full-grid kernel M(k) (built whole, as the serial one) on this
-        rank's k-pencil, applied by the pencil transforms."""
-        from .parallel.mesh import grid_group
-        from .parallel import pfft
-        group, P, idx = grid_group(mesh)
-        M = self._cell_precond_kernel(_F64, full_grid=True)
-        step = self._shape[1] // P
-        M_slab = M.narrow(1, idx * step, step)
-        shape = self._shape
-
-        def apply(q):
-            return pfft.pirfftn(M_slab * pfft.prfftn(q, group), shape, group)
-
-        return apply
 
     # ------------------------------------------------------------------
     # second derivatives through the ground state
     # ------------------------------------------------------------------
     # The getters differentiate E(chi*(theta), theta) in float64 from the
-    # stored state with ``ops.implicit``: the Hessian solves run outside
-    # the autograd transforms, preconditioned by the exact full-grid kernel
-    # (the spectral-convolution kernel on the card).  Their energies take
-    # the ladder terms' cached ladder and never the hoisted slabs, which
-    # depend on the cell.  With a mesh attached, chi is this rank's slab,
-    # the energies run through ``_mesh_chi_energy_body`` (replicated
-    # values) plus the ion-ion sum, and the solves are SPMD
-    # (``implicit.ground_state_hessian(group=)``) with ``_mesh_precond``.
+    # stored state with ``ops.implicit``, E the energy of
+    # ``_geometry_energy`` at the getter's map theta -> (h, cart): the
+    # Hessian solves run outside the autograd transforms, preconditioned
+    # by ``_cg_precond``.  With a mesh attached, chi is this rank's slab,
+    # the energies are replicated values and the solves are SPMD
+    # (``implicit.ground_state_hessian(group=)``).
 
     def _gs_chi(self):
         return safe_sqrt(self._den)
 
-    def _cg_precond(self):
-        if self._mesh is not None:
-            return self._mesh_precond(self._mesh)
-        return self._exact_precond()
-
-    def _hessian_args(self):
-        """(chi, group) of the Hessian solves: the whole chi serially, this
-        rank's slab and the "grid" group on a mesh."""
-        if self._mesh is None:
-            return self._gs_chi(), None
-        from .parallel.mesh import grid_group
-        return self._chi_sharded(self._mesh), grid_group(self._mesh)[0]
-
-    def _mesh_energy_fn(self, geometry):
-        """``energy(chi_local, theta)`` on the mesh: ``geometry(theta) ->
-        (h, cart)``, the density terms of ``_mesh_chi_energy_body`` plus
-        the ion-ion sum (replicated values)."""
-        body = self._mesh_chi_energy_body(self._mesh)
-        has_ii = self._has_ion_ion()
-
-        def energy(chi, theta):
-            h, cart = geometry(theta)
-            e = body(chi, h, cart)
-            if has_ii:
-                e = e + self._ion_ion_interaction(h, cart)
-            return e
-
-        return energy
+    def _hessian_args(self, group):
+        """(chi, precond) of the Hessian solves: the stored ground state's
+        chi (this rank's slab with a ``group``) and ``_cg_precond``."""
+        return self._slab(self._gs_chi(), group), self._cg_precond(group)
 
     def pressure(self, units="Ha/b3", requires_grad=False):
         """P = -dE/dV at the stored density (Hellmann-Feynman: no solve)."""
@@ -1342,31 +1233,9 @@ class System:
         _, K = self._compute_volume_derivatives(bulk_modulus=True)
         return K * self._pressure_unit(units)
 
-    def _volume_energy_fn(self):
-        """(chi, vol) -> energy of the cell scaled isotropically to vol."""
-        box0 = self._box_vecs
-        vol0 = self.volume("b3")
-        frac = self._frac_ion_coords
-        has_ie = self._needs_vext()
-        has_ii = self._has_ion_ion()
-        N_elec = self._N_elec
-
-        def energy(chi, vol):
-            h = box0 * (vol / vol0) ** (1.0 / 3.0)
-            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
-                     else self._v_ext)
-            N_tilde = wmean(chi * chi) * vol
-            den = (N_elec / N_tilde) * chi * chi
-            e = self._density_terms_energy(h, den, v_ext)
-            if has_ii:
-                e = e + self._ion_ion_interaction(h, frac @ h)
-            return e
-
-        return energy
-
-    def _volume_energy_fn_mesh(self):
-        """``_volume_energy_fn`` on the attached mesh: (chi slab, vol) ->
-        the replicated energy of the cell scaled isotropically to vol."""
+    def _volume_geometry(self):
+        """vol -> (h, cart): the stored cell scaled isotropically to vol,
+        with its ions."""
         box0, vol0 = self._box_vecs, self.volume("b3")
         frac = self._frac_ion_coords
 
@@ -1374,28 +1243,28 @@ class System:
             h = box0 * (vol / vol0) ** (1.0 / 3.0)
             return h, frac @ h
 
-        return self._mesh_energy_fn(geometry)
+        return geometry
+
+    def _volume_energy_fn(self, group=None):
+        """(chi, vol) -> energy of the cell scaled isotropically to vol."""
+        energy = self._geometry_energy(group, self._ion_ion_interaction)
+        geometry = self._volume_geometry()
+        return lambda chi, vol: energy(chi, *geometry(vol))
 
     def _compute_volume_derivatives(self, bulk_modulus=True):
-        chi0, group = self._hessian_args()
+        group = _grid_group(self._mesh)
         vol0 = torch.tensor(self.volume("b3"), dtype=_F64,
                             device=self._device)
-        energy = (self._volume_energy_fn() if group is None
-                  else self._volume_energy_fn_mesh())
+        energy = self._volume_energy_fn(group)
         if not bulk_modulus:
-            from .parallel.collectives import psum, rank_share
+            chi0 = self._slab(self._gs_chi(), group)
             with torch.enable_grad():
                 vol = vol0.clone().requires_grad_(True)
-                E = energy(chi0, vol)
-                if group is not None:
-                    E = rank_share(E, group)
-                (dEdV,) = torch.autograd.grad(E, vol)
-            if group is not None:
-                dEdV = psum(dEdV, group)
+                (dEdV,) = _replicated_grad(energy(chi0, vol), vol, group)
             return float(-dEdV)
+        chi0, pc = self._hessian_args(group)
         dEdV, H = implicit.ground_state_hessian(energy, chi0, vol0,
-                                                precond=self._cg_precond(),
-                                                group=group)
+                                                precond=pc, group=group)
         return float(-dEdV[0]), float(vol0 * H[0, 0])
 
     def elastic_constants(self, units="Ha/b3"):
@@ -1406,25 +1275,12 @@ class System:
     def _compute_elastic_constants(self):
         box0 = self._box_vecs
         frac = self._frac_ion_coords
-        has_ie = self._needs_vext()
-        has_ii = self._has_ion_ion()
-        N_elec = self._N_elec
-
-        def energy(chi, h):
-            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
-                     else self._v_ext)
-            N_tilde = wmean(chi * chi) * volume(h)
-            den = (N_elec / N_tilde) * chi * chi
-            e = self._density_terms_energy(h, den, v_ext)
-            if has_ii:
-                e = e + self._ion_ion_interaction(h, frac @ h)
-            return e
-
-        chi0, group = self._hessian_args()
-        if group is not None:
-            energy = self._mesh_energy_fn(lambda h: (h, frac @ h))
+        group = _grid_group(self._mesh)
+        energy = self._geometry_energy(group, self._ion_ion_interaction)
+        chi0, pc = self._hessian_args(group)
         G0, Hbar = implicit.ground_state_hessian(
-            energy, chi0, box0, precond=self._cg_precond(), group=group)
+            lambda chi, h: energy(chi, h, frac @ h), chi0, box0, precond=pc,
+            group=group)
         G0 = G0.reshape(3, 3)
 
         def stress_of_h(h):
@@ -1463,28 +1319,16 @@ class System:
 
     def _compute_force_constants(self, primitive_ion_indices):
         box0 = self._box_vecs
-        has_ii = self._has_ion_ion()
-        N_elec = self._N_elec
-        n_ions = self._N_ions
-
-        def energy(chi, cart):
-            v_ext = self._potential_from_ions(box0, cart)
-            N_tilde = wmean(chi * chi) * volume(box0)
-            den = (N_elec / N_tilde) * chi * chi
-            e = self._density_terms_energy(box0, den, v_ext)
-            if has_ii:
-                e = e + self._ion_ion_interaction(box0, cart)
-            return e
-
-        chi0, group = self._hessian_args()
-        if group is not None:
-            energy = self._mesh_energy_fn(lambda cart: (box0, cart))
+        group = _grid_group(self._mesh)
+        energy = self._geometry_energy(group, self._ion_ion_interaction)
+        chi0, pc = self._hessian_args(group)
         prim = [int(p) for p in primitive_ion_indices]
         rows = [3 * p + i for p in prim for i in range(3)]
         _, Hbar = implicit.ground_state_hessian(
-            energy, chi0, self._frac_ion_coords @ box0, rows=rows,
-            precond=self._cg_precond(), group=group)
+            lambda chi, cart: energy(chi, box0, cart), chi0,
+            self._frac_ion_coords @ box0, rows=rows, precond=pc, group=group)
         # Hbar[(p, i), (j, b)] = d2Ebar/dR_pi dR_jb = -dF_pi/dR_jb
+        n_ions = self._N_ions
         return Hbar.reshape(len(prim), 3, n_ions, 3).permute(0, 2, 1, 3)
 
     # ------------------------------------------------------------------
@@ -1511,19 +1355,14 @@ class System:
         with the same parameters."""
         if functional is not None:
             self._check_functional(functional)
-        box_vecs, v_ext, N_elec = self._box_vecs, self._v_ext, self._N_elec
-        vol = volume(box_vecs)
+        box = self._box_vecs
         chi0 = self._gs_chi()
-
-        def density(chi):
-            return (N_elec / (wmean(chi * chi) * vol)) * chi * chi
+        cell_energy = self._geometry_energy()
 
         def energy(chi, params):
-            return self._density_terms_energy(box_vecs, density(chi), v_ext,
-                                              functional=functional,
-                                              params=params)
+            return cell_energy(chi, box, None, params, functional)
 
-        pc = self._exact_precond()
+        pc = self._cg_precond()
         with torch.no_grad():
             E_ion = (float(self._ion_ion_energy()) if self._has_ion_ion()
                      else 0.0)
@@ -1534,7 +1373,8 @@ class System:
             E = energy(chi, params) + E_ion
             if property_fn is None:
                 return E
-            return property_fn(density(chi), E)
+            return property_fn(_chi_map(chi, volume(box), self._N_elec)[0],
+                               E)
 
         return fn
 
@@ -1548,29 +1388,17 @@ class System:
         if property not in ("pressure", "bulk_modulus"):
             raise ValueError("property must be 'pressure' or 'bulk_modulus'")
         self._check_functional(functional)
-        box0 = self._box_vecs
         vol0 = self.volume("b3")
-        frac = self._frac_ion_coords
-        has_ie = self._needs_vext()
-        has_ii = self._has_ion_ion()
-        N_elec = self._N_elec
         chi0 = self._gs_chi()
+        # the ion-ion energy depends on the volume: in P and K, not in
+        # their gradients
+        cell_energy = self._geometry_energy(ion_ion=self._ion_ion_interaction)
+        geometry = self._volume_geometry()
 
         def energy(chi, vol, params):
-            h = box0 * (vol / vol0) ** (1.0 / 3.0)
-            v_ext = (self._potential_from_ions(h, frac @ h) if has_ie
-                     else self._v_ext)
-            N_tilde = wmean(chi * chi) * vol
-            den = (N_elec / N_tilde) * chi * chi
-            E = self._density_terms_energy(h, den, v_ext,
-                                           functional=functional,
-                                           params=params)
-            if has_ii:
-                # volume-dependent: in P and K, not in their gradients
-                E = E + self._ion_ion_interaction(h, frac @ h)
-            return E
+            return cell_energy(chi, *geometry(vol), params, functional)
 
-        pc = self._exact_precond()
+        pc = self._cg_precond()
 
         def fn(params):
             with torch.enable_grad():
@@ -2037,50 +1865,32 @@ class System:
         once per relaxation, and the ion-ion sum depends on them.
 
         With a ``mesh`` the density terms run on this rank's slab of chi
-        (``_mesh_chi_energy_body``), each rank differentiates its share of
-        the energy and the gradient is the psum of the parts."""
+        (``_geometry_energy``) and every rank returns the same E and
+        gradient."""
+        group = _grid_group(mesh)
         frozen = []
-        group = None
-        if mesh is not None:
-            from .parallel.mesh import grid_group
-            from .parallel.collectives import (psum, rank_share,
-                                               broadcast_scalar)
-            group = grid_group(mesh)[0]
-            body = self._mesh_chi_energy_body(mesh)
 
-        def energy(x):
-            frac, box = geometry(x)
-            chi = held["chi"]
-            cart = frac @ box
-            if group is not None:
-                E = body(self._slab(chi, mesh), box, cart)
-            else:
-                v_ext = (self._potential_from_ions(box, cart)
-                         if self._needs_vext() else self._v_ext)
-                N_tilde = wmean(chi * chi) * volume(box)
-                den = (self._N_elec / N_tilde) * chi * chi
-                E = self._density_terms_energy(box, den, v_ext)
-            if self._has_ion_ion():
-                if not frozen:
-                    Rc, Rd = self._Rc_Rd()
-                    frozen.append((Rc, Rd, self._get_shifts(Rc)))
-                Rc, Rd, shifts = frozen[0]
-                E = E + ion_utils.ion_interaction_sum(
-                    box, cart, self._charges, Rc, Rd, shifts=shifts)
-            return E
+        def ion_ion(box, cart):
+            if not frozen:
+                Rc, Rd = self._Rc_Rd()
+                frozen.append((Rc, Rd, self._get_shifts(Rc)))
+            Rc, Rd, shifts = frozen[0]
+            return ion_utils.ion_interaction_sum(
+                box, cart, self._charges, Rc, Rd, shifts=shifts)
+
+        energy = self._geometry_energy(group, ion_ion)
 
         def vg(x):
             with torch.enable_grad():
                 xt = self._t(x).requires_grad_(True)
-                E = energy(xt)
-                if group is None:
-                    (g,) = torch.autograd.grad(E, xt)
-                else:
-                    (g,) = torch.autograd.grad(rank_share(E, group), xt)
-                    # the host optimizer branches on E: one value for all
-                    return (broadcast_scalar(E, group),
-                            psum(g, group).cpu().numpy())
-            return float(E.detach()), g.cpu().numpy()
+                frac, box = geometry(xt)
+                E = energy(self._slab(held["chi"], group), box, frac @ box)
+                (g,) = _replicated_grad(E, xt, group)
+            if group is None:
+                return float(E.detach()), g.cpu().numpy()
+            # the host optimizer branches on E: one value for all ranks
+            from .parallel.collectives import broadcast_scalar
+            return broadcast_scalar(E, group), g.cpu().numpy()
 
         return vg
 
@@ -2157,6 +1967,27 @@ class System:
                     else f"failed to converge in {maxiter} step(s)")
             print(f"Geometry optimization {word}\n", flush=True)
         return success_iter is not None, x
+
+
+def _grid_group(mesh):
+    """The "grid" process group of ``mesh``; None for no mesh (serial)."""
+    if mesh is None:
+        return None
+    from .parallel.mesh import grid_group
+    return grid_group(mesh)[0]
+
+
+def _replicated_grad(E, inputs, group):
+    """``torch.autograd.grad`` of the energy E with respect to ``inputs``
+    that every rank holds whole (the cell, the ions, theta).  On a
+    ``group`` E is a replicated value: each rank differentiates its share
+    and the gradient is the psum of the parts (``parallel/collectives.py``).
+    Serially (``group`` None) the plain gradient."""
+    if group is None:
+        return torch.autograd.grad(E, inputs)
+    from .parallel.collectives import psum, rank_share
+    return tuple(psum(g, group)
+                 for g in torch.autograd.grad(rank_share(E, group), inputs))
 
 
 def _check_mesh(mesh):

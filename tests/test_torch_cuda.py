@@ -826,7 +826,7 @@ def _graph_solve(s, capturable, stag_k=6, track_best=True):
     dt = s._dtype
     box, v_ext, N = s._box_vecs.to(dt), s._v_ext.to(dt), float(s._N_elec)
     vg, _ = s._analytic_solve_fn(box, v_ext, N, None, "TPGD")
-    M = s._apply_spectral(s._precond_kernel(box, N))
+    M = s._apply_spectral(s._cell_precond_kernel(dt))
     calls, replays = sc.launches, solvers.graph_replays
     st, it, conv = solvers.tpgd_minimize(
         vg, safe_sqrt(s._uniform_density()).to(dt), lr=1.0, ntol=1e-9,

@@ -108,7 +108,7 @@ def test_cached_kernel_is_the_fresh_one(monkeypatch, name, route):
     assert M.dtype == torch.float64 and torch.equal(M, fresh)
     # the f64 full-grid kernel of the second derivatives is the same entry
     # on the full route, a miss on the radial one
-    s._exact_precond()
+    s._cg_precond()
     assert _since(c0) == ((1, 2) if route == "full" else (2, 1))
 
 
@@ -175,12 +175,14 @@ def test_miss_after_change(name, change):
     assert _since(c0) == (1, 1) and s._precond_entry[2] is M
 
 
+_cached_kernel = System._cell_precond_kernel
+
+
 def _uncached_kernel(self, dtype, full_grid=False, aux=None):
-    """The kernel built on every call, without the cache."""
-    box, N = self._box_vecs.to(dtype), float(self._N_elec)
-    if full_grid:
-        return self._exact_precond_kernel(box, N, aux)
-    return self._precond_kernel(box, N, aux)
+    """The kernel built on every call, without the cache: the entry is
+    dropped before each build."""
+    self._precond_entry = None
+    return _cached_kernel(self, dtype, full_grid, aux)
 
 
 @pytest.mark.parametrize("term", ["HuangCarter", "lambda"])

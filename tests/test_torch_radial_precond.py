@@ -3,14 +3,15 @@ against the JAX package's ``_exact_precond_kernel_radial``, in f64 on the
 CPU, on the anisotropic (16, 20, 24) grid of
 ``tests/test_system_utils.py``: equal at rtol 1e-12; its ratio to the
 full-grid HVP kernel flat within 1e-5 after dividing by the median; below
-256^3 ``_precond_kernel`` is the full-grid kernel, bit for bit; on the
-main path's cell with ``_precond_kernel``'s ray, both kernels equal the
+256^3 ``_cell_precond_kernel`` is the full-grid kernel, bit for bit; on the
+main path's cell with ``_cell_precond_kernel``'s ray, both kernels equal the
 JAX package's."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+import torch
 
 from professad_tpu import system as jsys
 from professad_tpu.models import (IonIon as jIonIon,
@@ -60,7 +61,7 @@ def test_radial_kernel_matches_full_hvp(port):
 
 def test_precond_kernel_is_full_hvp_below_threshold(port):
     Ne = float(port.electron_count())
-    M = port._precond_kernel(port._box_vecs, Ne)
+    M = port._cell_precond_kernel(torch.float64)
     assert np.array_equal(
         M.numpy(), port._exact_precond_kernel(port._box_vecs, Ne).numpy())
 
@@ -69,7 +70,7 @@ def test_precond_kernel_is_full_hvp_below_threshold(port):
     32, pytest.param(128, marks=pytest.mark.slow)])
 def test_production_ray_matches_jax(n):
     """On the main path's cell (4-atom cubic fcc Al) with the ray that
-    ``_precond_kernel`` uses, n1d = max(4096, 16 n): the radial and the
+    ``_cell_precond_kernel`` uses, n1d = max(4096, 16 n): the radial and the
     full-grid kernels equal the JAX package's at rtol 1e-10, so the
     flatness of their ratio is the reference's own (128^3: ~1e-2)."""
     cell = 4.05 * np.eye(3)

@@ -52,7 +52,7 @@ def _solve(s, capturable, stag_k=6, track_best=True, ntol=1e-9):
     dt = s._dtype
     box, v_ext, N = s._box_vecs.to(dt), s._v_ext.to(dt), float(s._N_elec)
     vg, _ = s._analytic_solve_fn(box, v_ext, N, None, "TPGD")
-    M = s._apply_spectral(s._precond_kernel(box, N))
+    M = s._apply_spectral(s._cell_precond_kernel(dt))
     return solvers.tpgd_minimize(
         vg, safe_sqrt(s._uniform_density()).to(dt), lr=1.0,
         ntol=ntol, conv_count=3, max_iter=300, f_scale=EV_PER_HA,
